@@ -1,0 +1,13 @@
+"""PyTorch / CUDA port of avvad_tpu for NVIDIA Hopper (H100).
+
+This slice runs the audio-visual waveform serving step: log-power STFT
+frontend, float ResNet-18 lip tower, MCB fusion, two LSTM layers whose
+recurrence runs in hand-written CUDA kernels (``csrc/``), Dense, sigmoid.
+The package imports torch, numpy and the standard library only; the JAX
+package ``avvad_tpu`` is its reference and is never imported here.
+Entry points run on ``cuda`` unless given ``device="cpu"``.
+"""
+
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

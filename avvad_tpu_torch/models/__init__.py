@@ -1,0 +1,8 @@
+from .lstm import LSTMCellFused, LSTMStack, select_last
+from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
+from .resnet import BasicBlock, ResNet18
+from .vad_nets import AVVAD
+
+__all__ = ["AVVAD", "BasicBlock", "CompactBilinearPooling", "LSTMCellFused",
+           "LSTMStack", "ResNet18", "global_l2_normalize", "select_last",
+           "signed_sqrt"]

@@ -1,0 +1,68 @@
+"""Rules of the PyTorch port: no JAX in the port, and no silent CPU."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "avvad_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "avvad_tpu_torch").rglob("*.py"))
+    assert files, "avvad_tpu_torch has no modules"
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax_or_jax_package():
+    bad = []
+    for path in _port_files():
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from avvad_tpu_torch import resolve_device
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    model = AVVAD(lstm_hidden_size=8, lstm_layers=1, mcb_output_size=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_waveform_serving_fn(model, t_frames=4)
+    # an explicit CPU request is honoured
+    fn = make_waveform_serving_fn(model, t_frames=2, device="cpu")
+    probs = fn(np.random.default_rng(0).normal(size=(1, 1280)).astype(np.float32),
+               np.zeros((1, 1, 67, 67), np.float32))
+    assert probs.shape == (1, 2, 1) and probs.device.type == "cpu"
+
+
+@pytest.mark.parametrize("bad", ["state_quant", "w_shape", "h0_shape"])
+def test_lstm_wrapper_rejects_bad_arguments(bad):
+    from avvad_tpu_torch.ops.lstm_fused import lstm_layer_fused
+
+    kw = dict(x_proj=torch.zeros(2, 3, 32), w_hh=torch.zeros(8, 32))
+    if bad == "state_quant":
+        kw["state_quant"] = "fp8"
+    elif bad == "w_shape":
+        kw["w_hh"] = torch.zeros(32, 8)
+    else:
+        kw["h0"] = torch.zeros(3, 8)
+    with pytest.raises(ValueError):
+        lstm_layer_fused(**kw)
