@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of avvad_tpu for NVIDIA Hopper (H100).
 
-This slice runs the audio-visual waveform serving step: log-power STFT
-frontend, float ResNet-18 lip tower, MCB fusion, two LSTM layers whose
-recurrence runs in hand-written CUDA kernels (``csrc/``), Dense, sigmoid.
+It runs the audio-visual and the video-only waveform serving steps:
+log-power STFT frontend, ResNet-18 lip tower (float, or the static-int8
+trunk on the hand-written stem-epilogue and BasicBlock kernels), MCB
+fusion, two LSTM layers whose recurrence runs in hand-written CUDA kernels
+(``csrc/``), Dense, sigmoid.
 The package imports torch, numpy and the standard library only; the JAX
 package ``avvad_tpu`` is its reference and is never imported here.
 Entry points run on ``cuda`` unless given ``device="cpu"``.

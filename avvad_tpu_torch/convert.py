@@ -1,16 +1,17 @@
-"""JAX ``AVVAD`` variables -> the port's ``state_dict``.
+"""JAX ``AVVAD`` / ``VideoVAD`` variables -> the port's ``state_dict``.
 
 The input is the Flax variables tree as nested dicts of numpy arrays
-(``params``, ``batch_stats`` and ``sketch`` collections; the sketches in
-plain (d_in, out) or folded (2, d_in, f) form). No Flax is imported: the
+(``params``, ``batch_stats``, ``sketch`` and ``quant`` collections; the
+sketches in plain (d_in, out) or folded (2, d_in, f) form). No Flax is imported: the
 tree is walked as plain dicts. Rules, by leaf name:
 
 - ``kernel`` 4-d (HWIO conv) -> ``weight`` OIHW; ``kernel`` 2-d (Dense,
   (in, out)) -> ``weight`` (out, in);
 - BatchNorm ``scale`` -> ``weight``, ``mean`` -> ``running_mean``, ``var`` ->
   ``running_var`` (plus ``num_batches_tracked``);
-- LSTM ``w_ih`` / ``w_hh`` / ``bias``, Dense ``bias`` and the sketches keep
-  their names and layouts.
+- LSTM ``w_ih`` / ``w_hh`` / ``bias``, Dense ``bias``, the sketches and the
+  int8 tower's activation scales (``quant``: ``q_stem``, ``q1``, ``q_out``,
+  0-d buffers) keep their names and layouts.
 The path through the tree becomes the dotted module path, which the port's
 modules mirror.
 """
@@ -34,9 +35,10 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
 
 
 def from_flax_variables(tree: Mapping) -> dict[str, torch.Tensor]:
-    """-> state_dict for ``avvad_tpu_torch.models.AVVAD`` (strict load)."""
+    """-> state_dict for ``avvad_tpu_torch.models.AVVAD`` or ``VideoVAD``
+    (strict load)."""
     state: dict[str, torch.Tensor] = {}
-    for collection in ("params", "batch_stats", "sketch"):
+    for collection in ("params", "batch_stats", "sketch", "quant"):
         for path, arr in _flatten(tree.get(collection, {})):
             *mods, leaf = path
             if leaf == "kernel":

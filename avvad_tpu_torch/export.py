@@ -1,5 +1,5 @@
-"""The raw-input AV serving step (port of avvad_tpu/export.py:370-445,
-``make_waveform_serving_fn`` for ``AVVAD``)."""
+"""The raw-input serving step (port of avvad_tpu/export.py:370-445,
+``make_waveform_serving_fn`` for ``AVVAD`` and ``VideoVAD``)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.vad_nets import AVVAD
+from .models.vad_nets import AVVAD, VideoVAD
 from .ops.stft import log_power_frontend
 
 
@@ -22,12 +22,16 @@ def _stat(norm_stats: Optional[dict], device, *keys):
     return None
 
 
-def make_waveform_serving_fn(model: AVVAD, *, t_frames: int, fs: int = 16000,
+def make_waveform_serving_fn(model: AVVAD | VideoVAD, *,
+                             t_frames: Optional[int] = None,
+                             fs: int = 16000,
                              wlen_sec: float = 64e-3, hop_percent: float = 0.25,
                              norm_stats: Optional[dict] = None,
                              eps: float = 1e-8, video_frame_indices=None,
                              device: str | torch.device | None = None) -> Callable:
-    """-> ``fn(wave (B, n), video (B, T_src, 67, 67)) -> probs (B, T, 1)``.
+    """AVVAD: -> ``fn(wave (B, n), video (B, T_src, 67, 67)) -> probs
+    (B, T, 1)``, ``t_frames`` required; VideoVAD: -> ``fn(video) -> probs``
+    (the audio options unused).
 
     The model moves to ``device`` (the card unless ``device="cpu"``) in
     eval mode. ``norm_stats`` with audio_mean/audio_std (or mean/std) and
@@ -39,8 +43,10 @@ def make_waveform_serving_fn(model: AVVAD, *, t_frames: int, fs: int = 16000,
     TF32 stays off for matmuls and cuDNN convolutions: the JAX package pins
     fp32 (Precision.HIGHEST) in the STFT DFT and the MCB matmuls, and its
     float convs run in the model dtype, never in TF32."""
-    if not isinstance(model, AVVAD):
+    if not isinstance(model, (AVVAD, VideoVAD)):
         raise TypeError(f"unsupported model for serving: {type(model)!r}")
+    if isinstance(model, AVVAD) and t_frames is None:
+        raise TypeError("AVVAD serving needs t_frames")
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -52,17 +58,28 @@ def make_waveform_serving_fn(model: AVVAD, *, t_frames: int, fs: int = 16000,
            else torch.as_tensor(np.asarray(video_frame_indices), dtype=torch.long,
                                 device=dev))
 
+    def norm_video(video):
+        video = torch.as_tensor(video, device=dev, dtype=torch.float32)
+        if v_mean is not None:
+            video = (video - v_mean) / (v_std + eps)
+        return video
+
+    if isinstance(model, VideoVAD):
+        @torch.inference_mode()
+        def video_fn(video):
+            return torch.sigmoid(model(norm_video(video), video_frame_indices=idx))
+
+        return video_fn
+
     @torch.inference_mode()
     def fn(wave, video):
         wave = torch.as_tensor(wave, device=dev)
-        video = torch.as_tensor(video, device=dev, dtype=torch.float32)
         feats = log_power_frontend(wave, fs=fs, wlen_sec=wlen_sec,
                                    hop_percent=hop_percent, center=False,
                                    pad_at_end=True)[:, :t_frames, :]
         if a_mean is not None:
             feats = (feats - a_mean) / (a_std + eps)
-        if v_mean is not None:
-            video = (video - v_mean) / (v_std + eps)
-        return torch.sigmoid(model(feats, video, video_frame_indices=idx))
+        return torch.sigmoid(model(feats, norm_video(video),
+                                   video_frame_indices=idx))
 
     return fn

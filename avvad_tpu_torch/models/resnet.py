@@ -9,6 +9,17 @@ BasicBlocks (64, 128, 256, 512) with 1x1/2 downsample shortcuts (flax
 global mean pool. With ``dtype=bfloat16`` the convs run in bf16 and every
 BatchNorm output is fp32, as in the JAX module. The convs are plain cuDNN
 convolutions: the JAX package leaves them to XLA, outside any Pallas kernel.
+
+``quant_int8`` turns on the W8A8 trunk (resnet.py:204-225,364-461): the
+stem conv stays float, its BatchNorm output is quantised with the ``q_stem``
+scale before an int8 max pool, and each block takes and returns (int8,
+scale) with its ``q1`` and ``q_out`` scales; the scales are 0-d float32
+buffers, "dynamic" (per-tensor max-abs on the fly), "calibrate" (the same,
+recording the running max in the buffers) or "static" (the recorded max).
+With ``stages_pallas`` and static scales the stem epilogue and the eight
+blocks run as the fused kernels of ``ops/stem_fused.py`` and
+``ops/conv_fused.py`` (NHWC int8); otherwise the unfused path runs each int8
+convolution exactly as a float64 convolution over the integer values.
 """
 
 from __future__ import annotations
@@ -19,6 +30,11 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_fused import conv_exact, fold_block, quant_hwio, trunk_features_int8
+from ..ops.stem_fused import fold_stem, stem_epilogue_pool_quant
+
+QUANT_MODES = ("dynamic", "calibrate", "static")
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -37,15 +53,72 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return bn(x.float())
 
 
+def _bn_int8(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm in flax's order of operations, which the int8
+    path's requantisation is sensitive to: (x - mean) * (rsqrt(var + eps)
+    * scale) + bias."""
+    col = lambda v: v.float().view(1, -1, 1, 1)  # noqa: E731
+    mul = torch.rsqrt(col(bn.running_var) + bn.eps) * col(bn.weight)
+    return (x.float() - col(bn.running_mean)) * mul + col(bn.bias)
+
+
+def act_quant(x: torch.Tensor, amax_buf: torch.Tensor, mode: str):
+    """Activation -> (int8, 0-d float32 scale) (resnet.py:40-68): scale =
+    max(amax, 1e-8) / 127, q = clip(round(x / scale), -127, 127). amax is
+    the tensor's max |x| ("dynamic"; "calibrate" also folds it into
+    ``amax_buf`` as a running max) or the recorded ``amax_buf`` ("static")."""
+    if mode == "static":
+        scale = static_scale(amax_buf)
+    elif mode in ("dynamic", "calibrate"):
+        batch_max = x.abs().amax()
+        if mode == "calibrate":
+            amax_buf.copy_(torch.maximum(amax_buf, batch_max))
+        scale = static_scale(batch_max)
+    else:
+        raise ValueError(f"unknown quant mode: {mode!r}")
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def static_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127: the scale of ``act_quant`` for that amax."""
+    return torch.clamp(amax, min=1e-8) / 127.0
+
+
+def max_pool_i8(x_q: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool of NCHW int8 with -128 padding (resnet.py:71-81)."""
+    xp = F.pad(x_q.float(), (1, 1, 1, 1), value=-128.0)
+    return F.max_pool2d(xp, 3, stride=2).to(torch.int8)
+
+
+def qconv_int8(x_q: torch.Tensor, x_scale: torch.Tensor, w: torch.Tensor,
+               stride: int, padding: int) -> torch.Tensor:
+    """W8A8 conv (resnet.py:84-102): NCHW int8 input and its scale, OIHW
+    float weight quantised per output channel -> float32. The int32 sums
+    are exact as a float64 conv (|acc| <= 127^2 * 4608 < 2^53; float32
+    would not be above K ~ 1040)."""
+    w_q, w_s = quant_hwio(w)
+    acc = conv_exact(x_q, w_q.permute(3, 2, 0, 1), stride, padding)
+    return acc * (x_scale * w_s).view(1, -1, 1, 1)
+
+
+def _bn_params(bn: nn.BatchNorm2d) -> tuple:
+    return bn.weight, bn.bias, bn.running_mean, bn.running_var
+
+
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity / 1x1-downsample shortcut."""
 
     def __init__(self, in_features: int, features: int, stride: int,
                  dtype: torch.dtype, norm_eps: float,
-                 generator: torch.Generator):
+                 generator: torch.Generator, quant_int8: bool = False):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
+        self.norm_eps = norm_eps
+        self.quant_int8 = quant_int8
+        if quant_int8:
+            self.register_buffer("q1", torch.zeros(()))
+            self.register_buffer("q_out", torch.zeros(()))
         self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(features, eps=norm_eps)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
@@ -59,6 +132,30 @@ class BasicBlock(nn.Module):
             convs.append(self.downsample_conv)
         for c in convs:
             lecun_normal_(c.weight, generator)
+
+    def forward_int8(self, x: tuple, mode: str) -> tuple:
+        """(NCHW int8, scale) -> (NCHW int8, scale), unfused."""
+        x_q, x_scale = x
+        y = qconv_int8(x_q, x_scale, self.conv1.weight, self.stride, 1)
+        y_q, y_scale = act_quant(F.relu(_bn_int8(self.bn1, y)), self.q1, mode)
+        y = _bn_int8(self.bn2, qconv_int8(y_q, y_scale, self.conv2.weight, 1, 1))
+        if self.has_downsample:
+            residual = _bn_int8(self.downsample_bn, qconv_int8(
+                x_q, x_scale, self.downsample_conv.weight, self.stride, 0))
+        else:
+            residual = x_q.float() * x_scale
+        return act_quant(F.relu(y + residual), self.q_out, mode)
+
+    def folded(self, x_scale: torch.Tensor) -> tuple:
+        """-> (fold_block arguments for the fused kernel, out_scale), from
+        the static scales (resnet.py:160-180); folded at every forward."""
+        params = {"conv1": self.conv1.weight, "conv2": self.conv2.weight,
+                  "bn1": _bn_params(self.bn1), "bn2": _bn_params(self.bn2)}
+        if self.has_downsample:
+            params["downsample_conv"] = self.downsample_conv.weight
+            params["downsample_bn"] = _bn_params(self.downsample_bn)
+        q1_s, qo_s = static_scale(self.q1), static_scale(self.q_out)
+        return fold_block(x_scale, params, q1_s, qo_s, eps=self.norm_eps), qo_s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -88,17 +185,28 @@ class _StemGray(nn.Module):
 
 
 class ResNet18(nn.Module):
-    """Gray input (N, 1, H, W) -> (N, 512) pooled features, float32."""
+    """Gray input (N, 1, H, W) -> (N, 512) pooled features, float32.
+    ``quant_mode`` and ``stages_pallas`` are plain attributes: ``calibrate``
+    switches them for its run and restores them."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  dtype: torch.dtype = torch.float32, norm_eps: float = 1e-5,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 quant_int8: bool = False, quant_mode: str = "dynamic",
+                 stages_pallas: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode: {quant_mode!r}")
+        self.quant_int8 = quant_int8
+        self.quant_mode = quant_mode
+        self.stages_pallas = stages_pallas
         self.conv1 = _StemGray(dtype, generator)
         self.bn1 = nn.BatchNorm2d(64, eps=norm_eps)
+        if quant_int8:
+            self.register_buffer("q_stem", torch.zeros(()))
         self.block_names = []
         cin = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, widths)):
@@ -106,13 +214,41 @@ class ResNet18(nn.Module):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 name = f"layer{stage + 1}_{block}"
                 self.add_module(name, BasicBlock(cin, width, stride, dtype,
-                                                 norm_eps, generator))
+                                                 norm_eps, generator, quant_int8))
                 self.block_names.append(name)
                 cin = width
 
+    def blocks(self) -> list:
+        return [getattr(self, name) for name in self.block_names]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(_bn(self.bn1, self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for name in self.block_names:
-            x = getattr(self, name)(x)
-        return x.mean(dim=(2, 3)).float()
+        if not self.quant_int8:
+            x = F.relu(_bn(self.bn1, self.conv1(x)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for block in self.blocks():
+                x = block(x)
+            return x.mean(dim=(2, 3)).float()
+        if self.stages_pallas:
+            return self._fused_int8(self.conv1(x))
+        mode = self.quant_mode
+        y = F.relu(_bn_int8(self.bn1, self.conv1(x)))
+        x_q, scale = act_quant(y, self.q_stem, mode)
+        xs = (max_pool_i8(x_q), scale)
+        for block in self.blocks():
+            xs = block.forward_int8(xs, mode)
+        return (xs[0].float() * xs[1]).mean(dim=(2, 3))
+
+    def _fused_int8(self, stem: torch.Tensor) -> torch.Tensor:
+        """Stem conv output -> stem epilogue kernel (K3) -> 8 fused block
+        kernels (K2) -> pooled features (resnet.py:411-447)."""
+        if self.quant_mode != "static":
+            raise ValueError("stages_pallas requires quant_mode='static'")
+        if self.training:
+            raise ValueError("stages_pallas is inference-only")
+        a, b = fold_stem(self.bn1, self.q_stem)
+        x_q = stem_epilogue_pool_quant(stem, a, b)
+        scale, specs = static_scale(self.q_stem), []
+        for block in self.blocks():
+            spec, scale = block.folded(scale)
+            specs.append(spec)
+        return trunk_features_int8(x_q, specs)

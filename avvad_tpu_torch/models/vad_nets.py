@@ -1,5 +1,7 @@
-"""Audio-visual VAD model (port of avvad_tpu/models/vad_nets.py: _VideoTower
-and AVVAD, float tower, inference).
+"""Video and audio-visual VAD models (port of avvad_tpu/models/vad_nets.py:
+_VideoTower, VideoVAD and AVVAD, inference), with the float tower or the
+W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and static
+scales).
 
 Children carry the JAX parameter tree's names (``tower.features``,
 ``mcb``, ``mcb_bn``, ``lstm_merged``, ``vad_merged``) so
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .lstm import LSTMStack
+from .lstm import LSTMStack, select_last
 from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
 from .resnet import ResNet18, lecun_normal_
 
@@ -24,24 +26,78 @@ from .resnet import ResNet18, lecun_normal_
 class _VideoTower(nn.Module):
     """Gray (B, T, H, W) -> (B, T, 512) ResNet features. ``chunk``: run the
     trunk over slices of at most ``chunk`` frames (bounds activation
-    memory; frames are independent through the trunk)."""
+    memory; frames are independent through the trunk). An int8 tower
+    chunks only with static scales: "calibrate" would record per-chunk
+    maxima in turn (harmless) but "dynamic" scales would become per chunk
+    (vad_nets.py:155-162)."""
 
     def __init__(self, dtype: torch.dtype = torch.float32, chunk: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 quant_int8: bool = False, quant_mode: str = "dynamic",
+                 stages_pallas: bool = False):
         super().__init__()
         self.chunk = chunk
-        self.features = ResNet18(dtype=dtype, generator=generator)
+        self.features = ResNet18(dtype=dtype, generator=generator,
+                                 quant_int8=quant_int8, quant_mode=quant_mode,
+                                 stages_pallas=stages_pallas)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         b, t, h, w = video.shape
         frames = video.reshape(b * t, 1, h, w)
         n = b * t
-        if self.chunk and n > self.chunk:
+        trunk = self.features
+        chunkable = not (trunk.quant_int8 and trunk.quant_mode != "static")
+        if chunkable and self.chunk and n > self.chunk:
             feats = torch.cat([self.features(frames[i:i + self.chunk])
                                for i in range(0, n, self.chunk)])
         else:
             feats = self.features(frames)
         return feats.reshape(b, t, -1)
+
+
+def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas):
+    return _VideoTower(dtype=dtype, chunk=chunk, generator=g,
+                       quant_int8=tower_int8, quant_mode=tower_quant_mode,
+                       stages_pallas=tower_pallas)
+
+
+class VideoVAD(nn.Module):
+    """Video tower -> LSTM stack -> Dense logits (vad_nets.py:191-239),
+    with the ``return_last`` last-valid-step mode."""
+
+    def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
+                 lstm_layers: int = 2, dtype: torch.dtype = torch.float32,
+                 use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
+                 tower_int8: bool = False, tower_quant_mode: str = "dynamic",
+                 tower_pallas: bool = False, tower_chunk: int = 0,
+                 num_video_features: int = 512, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.tower = _tower(dtype, tower_chunk, g, tower_int8,
+                            tower_quant_mode, tower_pallas)
+        self.lstm_video = LSTMStack(num_video_features, lstm_hidden_size,
+                                    lstm_layers, dtype=dtype,
+                                    use_kernel=use_kernel_lstm,
+                                    state_quant=lstm_state_quant, generator=g)
+        self.vad_video = nn.Linear(lstm_hidden_size, y_dim)
+        lecun_normal_(self.vad_video.weight, g)
+        nn.init.zeros_(self.vad_video.bias)
+
+    def forward(self, video: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                return_last: bool = False,
+                video_frame_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """video (B, T_v, 67, 67) -> logits (B, T, y_dim), or (B, y_dim) at
+        each sequence's last valid step with ``return_last`` (needs
+        ``lengths``). ``video_frame_indices``: as in AVVAD.forward."""
+        x = self.tower(video)
+        if video_frame_indices is not None:
+            x = x.index_select(1, video_frame_indices.to(x.device).long())
+        x = self.lstm_video(x)
+        if return_last:
+            if lengths is None:
+                raise ValueError("return_last requires lengths")
+            x = select_last(x, lengths.to(x.device))
+        return self.vad_video(x.float())
 
 
 class AVVAD(nn.Module):
@@ -55,12 +111,14 @@ class AVVAD(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  tower_chunk: int = 0, mcb_folded_vars: bool = False,
-                 seed: int = 0):
+                 tower_int8: bool = False, tower_quant_mode: str = "dynamic",
+                 tower_pallas: bool = False, seed: int = 0):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.use_mcb = use_mcb
         self.eps = eps
-        self.tower = _VideoTower(dtype=dtype, chunk=tower_chunk, generator=g)
+        self.tower = _tower(dtype, tower_chunk, g, tower_int8,
+                            tower_quant_mode, tower_pallas)
         if use_mcb:
             self.mcb = CompactBilinearPooling(
                 num_audio_features, num_video_features, mcb_output_size,

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
-``nvcc`` compiles ``avvad_tpu_torch/csrc/lstm_recurrence.cu`` for sm_90a
-into ``build/avvad_tpu_torch/liblstm.so`` at first use, from the
-repository's own sources. The library exposes ``extern "C"`` functions that
-take raw device pointers and the stream, so the build needs no PyTorch
-headers and takes seconds. Nothing here runs at import time.
+``nvcc`` compiles every ``avvad_tpu_torch/csrc/*.cu`` for sm_90a, one
+process per source, all started together, and links the objects into one
+library, ``build/avvad_tpu_torch/libavvad_kernels.so``, at first use, from
+the repository's own sources. The library exposes ``extern "C"`` functions
+that take raw device pointers and the stream, so the build needs no
+PyTorch headers and takes seconds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,11 +18,24 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "lstm_recurrence.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "avvad_tpu_torch"
-LIB_PATH = BUILD_DIR / "liblstm.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_PATH = BUILD_DIR / "libavvad_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points -> argtypes (every pointer and the stream as c_void_p)
+SIGNATURES = {
+    "lstm_f32h": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lstm_bf16h": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lstm_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, out,
+    # N, H, W, Cin, Cout, stride, frames per block, stream
+    "int8_basic_block": [_P] * 12 + [_I] * 7 + [_P],
+    # x, a, b, out, N, C, strides (N, C, H, W) in elements, is_bf16, stream
+    "stem_epilogue_pool": [_P] * 4 + [_I] * 7 + [_P],
+}
 
 _lib = None
 
@@ -36,37 +50,48 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> dict:
-    """Compile liblstm.so if missing or older than its source.
+    """Compile the library if missing or older than its newest source.
     -> {"path", "seconds", "ptxas"} (ptxas: the -Xptxas -v lines, empty
     when nothing was rebuilt)."""
+    srcs = sorted(CSRC.glob("*.cu"))
     if (not force and LIB_PATH.exists()
-            and LIB_PATH.stat().st_mtime >= SOURCE.stat().st_mtime):
+            and LIB_PATH.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
         return {"path": str(LIB_PATH), "seconds": 0.0, "ptxas": []}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp.so")
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *ARCH, "-Xptxas", "-v", "-c", "-o", str(o),
+                               str(s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    ptxas = []
+    for s, p in zip(srcs, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):\n{err}")
+        ptxas += [f"{s.name}: {ln}" for ln in err.splitlines() if "ptxas" in ln]
+    tmp = LIB_PATH.with_suffix(f".{tag}.tmp.so")
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
-    ptxas = [ln for ln in proc.stderr.splitlines() if "ptxas" in ln]
-    return {"path": str(LIB_PATH), "seconds": seconds, "ptxas": ptxas}
+    return {"path": str(LIB_PATH), "seconds": time.perf_counter() - t0,
+            "ptxas": ptxas}
 
 
-def lstm_lib() -> ctypes.CDLL:
+def kernel_lib() -> ctypes.CDLL:
     """The bound library, built on first use."""
     global _lib
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIB_PATH))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("lstm_f32h", "lstm_bf16h"):
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, i, i, i, p]
-            fn.restype = i
-        lib.lstm_int8.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.lstm_int8.restype = i
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -101,7 +101,7 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _launch(x_proj, w_hh, h0, c0, state_quant) -> torch.Tensor:
-    from ._build import lstm_lib
+    from ._build import kernel_lib
 
     dev = x_proj.device
     b, t, h4 = x_proj.shape
@@ -122,7 +122,7 @@ def _launch(x_proj, w_hh, h0, c0, state_quant) -> torch.Tensor:
     # the temporaries below live on this stream too, so the caching
     # allocator reuses their memory only after the queued launches
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = lstm_lib()
+    lib = kernel_lib()
     if state_quant == "int8":
         _require(h % 4 == 0, f"int8 recurrence needs H % 4 == 0, got H={h}")
         wq, ws = _quant_weights(w_hh)

@@ -4,19 +4,31 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 1. card check (no CUDA device -> exit 1) and the card's name and power limit;
-2. build the LSTM kernels from avvad_tpu_torch/csrc with nvcc (sm_90a);
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shape (B=64, T=512, H=1024) and a ragged one (B=3, T=7), with
+2. build every kernel of avvad_tpu_torch/csrc with nvcc (sm_90a), one
+   process per source;
+3. each LSTM kernel against its plain PyTorch version on the card, at the
+   main path's shape (B=64, T=512, H=1024) and a ragged one (B=3, T=7), with
    CUDA-event times of the kernel, the plain version and one cuDNN
    torch.nn.LSTM layer, and the bound from the shapes;
-4. the full-width AV serving step (ResNet-18 tower, MCB 1024, 2 x LSTM 1024,
-   bf16 model, B=64, T=512, 30 fps unique frames) for each LSTM
-   state_quant, with launch counters read around the step, outputs checked,
-   the step compared with the plain recurrence and timed, its stages timed
-   by CUDA events recorded at the tower's and the LSTM stack's edges, and
-   one more step under torch.profiler for the device's idle share and top
-   kernels (one {"profile": ...} line per state_quant);
-5. one {"kernels": [...]} line, then the ok line with the device.
+4. the int8 tower's kernels against their plain versions: the stem
+   epilogue (K3) on bf16 NCHW stem output and the fused BasicBlock (K2) at
+   each of the 8 trunk geometries with seeded int8 inputs and random folded
+   parameters, at the main path's frame count (64 x 246 = 15,744) and a
+   ragged one (37); CUDA-event times of kernel and plain version, bounds;
+5. the full-width AV serving step with the float ResNet-18 tower (MCB 1024,
+   2 x LSTM 1024, bf16 model, B=64, T=512, 30 fps unique frames) for each
+   LSTM state_quant, with launch counters read around the step, outputs
+   checked, the step compared with the plain recurrence and timed, its
+   stages timed by CUDA events recorded at the tower's and the LSTM stack's
+   edges, and one more step under torch.profiler for the device's idle
+   share and top kernels (one {"profile": ...} line per state_quant);
+6. the same step with the calibrated static-int8 tower on the fused
+   kernels (K3 once and K2 eight times per tower pass), calibrated with the
+   port's ``calibrate`` on 2 utterances, for state_quant none and int8:
+   launch counts, outputs, the step against the same step with the plain
+   K2/K3 versions, times, stages and a profile line; and the int8 tower's
+   features against the fp32 float tower's on the same frames;
+7. one {"kernels": [...]} line, then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -39,6 +51,7 @@ PEAK = {"none": 67e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_NAME = {"none": "fp32 CUDA-core", "bf16": "bf16 tensor-core",
              "int8": "int8 tensor-core"}
 MEM_BW = 3.35e12
+MEM_BW_NAME = "3.35 TB/s HBM3"
 REPLACES = {"none": "avvad_tpu/ops/lstm_pallas.py:54",
             "bf16": "avvad_tpu/ops/lstm_pallas.py:71",
             "int8": "avvad_tpu/ops/lstm_pallas.py:92"}
@@ -47,6 +60,18 @@ REPLACES = {"none": "avvad_tpu/ops/lstm_pallas.py:54",
 # same, plus the rare h whose fp32 noise crosses a bf16 / int8 rounding
 # boundary, which moves one gate term by one LSB of the quantised h.
 KERNEL_TOL = {"none": 1e-4, "bf16": 2e-3, "int8": 2e-3}
+# a ragged frame count for the int8 tower's kernels
+N_RAGGED = 37
+# K2 / K3 against their plain versions: both compute exact int32 sums and
+# the same separate float32 operations, so they agree bit for bit; held at
+# one LSB on under 0.1 % of the outputs
+LSB_TOL, FLIP_TOL = 1, 1e-3
+# the int8 step with the K2/K3 kernels vs the same step with their plain
+# versions (bit-identical tower, the same LSTM kernel)
+INT8_PROB_TOL = 1e-4
+# int8 tower features vs the fp32 float tower (tests/test_models.py:419-422)
+FEAT_REL, FEAT_CORR = 0.05, 0.995
+INT8_STATE_QUANTS = ("none", "int8")
 # serving probabilities at the main path's shape, kernel vs plain
 # recurrence on the same card: H100 80GB HBM3 (700 W) readings were
 # 3.8e-6 (none), 1.2e-5 (bf16) and 0 (int8); held at 1e-4
@@ -128,6 +153,127 @@ def kernel_phase(lstm_fused):
     return rows
 
 
+def random_block(cin: int, cout: int, stride: int, seed: int) -> dict:
+    """Seeded int8 weights and folded epilogue vectors of one fused block on
+    the card, scaled so that the requantised values spread over [0, 127]."""
+    g = torch.Generator().manual_seed(seed)
+    w = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8)  # noqa: E731
+    vec = lambda lo, hi: torch.rand(cout, generator=g) * (hi - lo) + lo  # noqa: E731
+    args = {"w1": w(cout, 9 * cin), "w2": w(cout, 9 * cout),
+            "a1": vec(0.5, 1.5) * 64 / (73 * 73 * (9 * cin) ** 0.5),
+            "b1": vec(-20, 20),
+            "a2": vec(0.5, 1.5) * 64 / (73 * 40 * (9 * cout) ** 0.5),
+            "b2": vec(-20, 20)}
+    if stride != 1 or cin != cout:
+        args.update(wd=w(cout, cin), ad=vec(0.5, 1.5) * 64 / (73 * 73 * cin ** 0.5),
+                    bd=vec(-20, 20))
+    else:
+        args["res_scale"] = torch.tensor(0.37)
+    return {k: v.cuda() for k, v in args.items()}
+
+
+def lsb_diff(y: torch.Tensor, ref: torch.Tensor) -> tuple[int, float]:
+    d = (y.int() - ref.int()).abs()
+    return int(d.max().item()), float((d > 0).float().mean().item())
+
+
+def k2_bound(n: int, h: int, stride: int, cin: int, cout: int) -> tuple[float, float]:
+    """(int8 operations, bytes) of one fused block launch: 2 per MAC of the
+    two 3x3 convs and the 1x1 downsample; x, the weights and the folded
+    vectors read once, the int8 output written once."""
+    ho = (h - 1) // stride + 1
+    down = stride != 1 or cin != cout
+    macs = n * ho * ho * cout * (9 * cin + 9 * cout + (cin if down else 0))
+    w_bytes = 9 * cin * cout + 9 * cout * cout + (cin * cout if down else 0)
+    v_bytes = 4 * cout * (6 if down else 4)
+    return 2.0 * macs, n * h * h * cin + w_bytes + v_bytes + n * ho * ho * cout
+
+
+def int8_kernel_phase(n_frames: int) -> dict:
+    """K3 and K2 against their plain versions at the main path's frame count
+    and a ragged one, with CUDA-event times and bounds -> kernel rows."""
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    # K3 on the bf16 model's stem output: (N, 64, 34, 34) bf16, cuDNN's NCHW
+    errs, g = [], torch.Generator().manual_seed(5)
+    a = (torch.rand(64, generator=g) * 20 + 5).cuda()
+    b = (torch.randn(64, generator=g) * 10).cuda()
+    for n in (n_frames, N_RAGGED):
+        x = (torch.randn(n, 64, 34, 34, generator=g) * 3).to("cuda", torch.bfloat16)
+        y = stem_fused.stem_epilogue_pool_quant(x, a, b)
+        torch.cuda.synchronize()
+        errs.append(lsb_diff(y, stem_fused.stem_epilogue_plain(x, a, b)))
+        print(f"stem_epilogue_pool N={n}: max {errs[-1][0]} LSB, "
+              f"{errs[-1][1]:.2e} of outputs differ")
+        if errs[-1][0] > LSB_TOL or errs[-1][1] >= FLIP_TOL:
+            raise RuntimeError(f"stem_epilogue_pool disagrees with plain: {errs[-1]}")
+    x = (torch.randn(n_frames, 64, 34, 34, generator=g) * 3).to("cuda", torch.bfloat16)
+    ms = cuda_ms(lambda: stem_fused.stem_epilogue_pool_quant(x, a, b), 10)
+    plain_ms = cuda_ms(lambda: stem_fused.stem_epilogue_plain(x, a, b), 2)
+    # each input read once (bf16) and each int8 output written once; fp32
+    # operations: multiply, add, max, round, min per input, 8 maxima per output
+    nbytes = x.numel() * 2 + 2 * 64 * 4 + n_frames * 17 * 17 * 64
+    ops = 5.0 * x.numel() + 8.0 * n_frames * 17 * 17 * 64
+    bound_ms = 1e3 * max(nbytes / MEM_BW, ops / PEAK["none"])
+    bound_by = "bytes" if nbytes / MEM_BW >= ops / PEAK["none"] else "operations"
+    print(f"stem_epilogue_pool N={n_frames}: kernel {ms:.3f} ms, plain {plain_ms:.3f}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB at {MEM_BW_NAME})")
+    rows = {"k3": {"name": stem_fused.KERNEL_NAME, "route": "cuda",
+                   "source": "avvad_tpu_torch/csrc/stem_epilogue_pool.cu",
+                   "replaces": "avvad_tpu/ops/stem_pallas.py:72", "launches": None,
+                   "max_abs_err": max(e[0] for e in errs), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}}
+    del x
+
+    # K2 at the 8 trunk geometries
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0}
+    worst, cin = 0, 64
+    for i, ((h, stride), cout) in enumerate(zip(conv_fused.TRUNK_GEOM,
+                                                conv_fused.TRUNK_WIDTHS)):
+        spec = random_block(cin, cout, stride, 30 + i)
+        args = conv_fused._block_args(spec)
+        for n in (N_RAGGED, n_frames):
+            x = torch.randint(0, 128, (n, h, h, cin), generator=g, dtype=torch.int8).cuda()
+            y = conv_fused.basic_block_int8(x, *args, stride=stride)
+            torch.cuda.synchronize()
+            ref = conv_fused.basic_block_int8_plain(x, *args, stride=stride)
+            lsb, share = lsb_diff(y, ref)
+            del ref
+            worst = max(worst, lsb)
+            if lsb > LSB_TOL or share >= FLIP_TOL:
+                raise RuntimeError(f"int8_basic_block {h}/{stride}: {lsb} LSB, {share}")
+        ms = cuda_ms(lambda: conv_fused.basic_block_int8(x, *args, stride=stride), 5)
+        plain_ms = cuda_ms(lambda: conv_fused.basic_block_int8_plain(x, *args,
+                                                                     stride=stride), 1)
+        ops, nbytes = k2_bound(n_frames, h, stride, cin, cout)
+        t_ops, t_bytes = ops / PEAK["int8"], nbytes / MEM_BW
+        print(f"int8_basic_block {h}x{h}/{stride} {cin}->{cout} N={n_frames}: "
+              f"max {lsb} LSB, {share:.2e} differ (also N={N_RAGGED}); kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f}, bound {1e3 * max(t_ops, t_bytes):.4f} "
+              f"ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+              f"{ops / ms / 1e9:.1f} TOP/s")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += 1e3 * max(t_ops, t_bytes)
+        tot["ops"] += ops
+        tot["bytes"] += nbytes
+        cin = cout
+    bound_by = ("operations" if tot["ops"] / PEAK["int8"] >= tot["bytes"] / MEM_BW
+                else "bytes")
+    print(f"int8_basic_block, 8 blocks at N={n_frames}: kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f}, bound {tot['bound_ms']:.4f} ms ({bound_by}; "
+          f"{tot['ops'] / 1e12:.3f} TOP at {PEAK_NAME['int8']} peak, "
+          f"{tot['bytes'] / 1e9:.3f} GB, {tot['ops'] / 2 / n_frames / 1e6:.1f} M MAC/frame)")
+    rows["k2"] = {"name": conv_fused.KERNEL_NAME, "route": "cuda",
+                  "source": "avvad_tpu_torch/csrc/int8_basic_block.cu",
+                  "replaces": "avvad_tpu/ops/conv_pallas.py:155", "launches": None,
+                  "max_abs_err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                  "bound_ms": tot["bound_ms"], "bound_by": bound_by,
+                  "library_ms": None}
+    return rows
+
+
 def _mark(marks: list) -> None:
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
@@ -183,36 +329,69 @@ def profile_step(fn, wave, video) -> dict:
                             for e in events[:10]]}
 
 
-def main_path(lstm_fused, rows):
-    import avvad_tpu_torch.models.lstm as lstm_mod
-    from avvad_tpu_torch.export import make_waveform_serving_fn
-    from avvad_tpu_torch.models import AVVAD
+def serving_inputs():
+    """-> (wave (B, n), video (B, t_src, 67, 67), frame indices), seeded,
+    on the card."""
     from avvad_tpu_torch.processing import unique_frame_schedule
 
     t_src, idx = unique_frame_schedule(T)
     rng = np.random.default_rng(0)
     wave = torch.from_numpy(rng.standard_normal((B, N_SAMPLES), np.float32)).cuda()
     video = torch.from_numpy(rng.standard_normal((B, t_src, 67, 67), np.float32)).cuda()
+    return wave, video, idx
+
+
+def check_probs(probs: torch.Tensor, label: str) -> None:
+    if probs.shape != (B, T, 1) or not torch.isfinite(probs).all() \
+            or probs.min() < 0 or probs.max() > 1:
+        raise RuntimeError(f"{label}: bad probabilities {tuple(probs.shape)}")
+
+
+def time_step(fn, model, wave, video, label: str, tail: str) -> None:
+    """Best of 3 timed steps with the stage split, then one profiled step:
+    one line of times and one {"profile": ...} line."""
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    hooks = stage_hooks(model, marks)
+    try:
+        reps = [timed_step(fn, wave, video, marks) for _ in range(3)]
+    finally:
+        for hk in hooks:
+            hk.remove()
+    step, stage_ms = min(reps, key=lambda r: r[0])
+    print(f"serving {label}: {1e3 * step:.2f} ms/step (reps "
+          f"{[round(1e3 * s, 2) for s, _ in reps]}), {B * T / FRAME_RATE / step:.1f}x "
+          f"real time, {tail}, peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"profile": label, "stage_ms": stage_ms,
+                      **profile_step(fn, wave, video)}))
+
+
+def main_path(lstm_fused, rows):
+    import avvad_tpu_torch.models.lstm as lstm_mod
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    wave, video, idx = serving_inputs()
     model = AVVAD(y_dim=1, lstm_hidden_size=H, lstm_layers=2, use_mcb=True,
                   mcb_output_size=1024, dtype=torch.bfloat16,
                   use_kernel_lstm=True, seed=0)
     fn = make_waveform_serving_fn(model, t_frames=T, video_frame_indices=idx)
-    audio_s = B * T / FRAME_RATE
-    print(f"main path: AVVAD bf16, LSTM 2x{H}, MCB 1024, ResNet-18, "
-          f"B={B} T={T} n={N_SAMPLES} t_src={t_src} (30 fps unique frames)")
+    print(f"main path: AVVAD bf16, LSTM 2x{H}, MCB 1024, ResNet-18 float, "
+          f"B={B} T={T} n={N_SAMPLES} t_src={video.shape[1]} (30 fps unique frames)")
     for sq in lstm_fused.STATE_QUANTS:
         model.set_lstm_state_quant(sq)
-        lstm_fused.reset_launches()
+        for mod in (lstm_fused, conv_fused, stem_fused):
+            mod.reset_launches()
         probs = fn(wave, video)
         torch.cuda.synchronize()
-        counts = dict(lstm_fused.launches)
+        counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
         expect = {k: (2 * T if k == sq else 0) for k in counts}
         if counts != expect:
             raise RuntimeError(f"{sq}: launch counts {counts}, expected {expect}")
         rows[sq]["launches"] = counts[sq]
-        if probs.shape != (B, T, 1) or not torch.isfinite(probs).all() \
-                or probs.min() < 0 or probs.max() > 1:
-            raise RuntimeError(f"{sq}: bad probabilities {probs.shape}")
+        check_probs(probs, sq)
         lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_plain
         try:
             ref = fn(wave, video)
@@ -221,22 +400,74 @@ def main_path(lstm_fused, rows):
         err = (probs - ref).abs().max().item()
         if err > PROB_TOL:
             raise RuntimeError(f"{sq}: serving step vs plain LSTM {err}")
-        torch.cuda.reset_peak_memory_stats()
-        marks = []
-        hooks = stage_hooks(model, marks)
+        time_step(fn, model, wave, video, sq, f"launches {counts[sq]}, "
+                  f"max|probs-plain| {err:.2e} (tol {PROB_TOL:g})")
+
+
+def int8_path(rows):
+    """The static-int8 tower on the fused kernels: K3 -> 8 x K2 -> LSTM."""
+    import avvad_tpu_torch.models.resnet as resnet_mod
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD, ResNet18, calibrate
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+
+    wave, video, idx = serving_inputs()
+    model = AVVAD(y_dim=1, lstm_hidden_size=H, lstm_layers=2, use_mcb=True,
+                  mcb_output_size=1024, dtype=torch.bfloat16, use_kernel_lstm=True,
+                  tower_int8=True, tower_quant_mode="static", tower_pallas=True,
+                  seed=0).cuda()
+    # the scales from 2 utterances on the unfused path, as bench.py:447-458
+    t0 = time.perf_counter()
+    calibrate(model, [(torch.zeros(2, T, 513, device="cuda"), video[:2])],
+              video_frame_indices=torch.as_tensor(idx, device="cuda"))
+    torch.cuda.synchronize()
+    trunk = model.tower.features
+    print(f"int8 path: calibrated on 2 utterances ({2 * video.shape[1]} frames) in "
+          f"{time.perf_counter() - t0:.1f} s; q_stem {trunk.q_stem.item():.4f}, "
+          f"layer4_1.q_out {trunk.layer4_1.q_out.item():.4f}")
+    fn = make_waveform_serving_fn(model, t_frames=T, video_frame_indices=idx)
+    for sq in INT8_STATE_QUANTS:
+        model.set_lstm_state_quant(sq)
+        for mod in (lstm_fused, conv_fused, stem_fused):
+            mod.reset_launches()
+        probs = fn(wave, video)
+        torch.cuda.synchronize()
+        counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+        expect = {k: (2 * T if k == sq else 0) for k in lstm_fused.launches}
+        expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1})
+        if counts != expect:
+            raise RuntimeError(f"int8 tower {sq}: launch counts {counts}, "
+                               f"expected {expect}")
+        rows["k2"]["launches"] = counts[conv_fused.KERNEL_NAME]
+        rows["k3"]["launches"] = counts[stem_fused.KERNEL_NAME]
+        check_probs(probs, f"int8 tower {sq}")
+        block_kernel = conv_fused.basic_block_int8
+        resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
+        conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
         try:
-            reps = [timed_step(fn, wave, video, marks) for _ in range(3)]
+            ref = fn(wave, video)
         finally:
-            for hk in hooks:
-                hk.remove()
-        step, stage_ms = min(reps, key=lambda r: r[0])
-        print(f"serving state_quant={sq}: {1e3 * step:.2f} ms/step (reps "
-              f"{[round(1e3 * s, 2) for s, _ in reps]}), {audio_s / step:.1f}x real "
-              f"time, launches {counts[sq]}, max|probs-plain| {err:.2e} "
-              f"(tol {PROB_TOL:g}), peak mem "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        print(json.dumps({"profile": sq, "stage_ms": stage_ms,
-                          **profile_step(fn, wave, video)}))
+            resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
+            conv_fused.basic_block_int8 = block_kernel
+        err = (probs - ref).abs().max().item()
+        if err > INT8_PROB_TOL:
+            raise RuntimeError(f"int8 tower {sq}: step vs plain K2/K3 {err}")
+        time_step(fn, model, wave, video, f"int8_tower/{sq}",
+                  f"launches {counts}, max|probs-plain K2/K3| {err:.2e} "
+                  f"(tol {INT8_PROB_TOL:g})")
+    # int8 tower features against the fp32 float tower, same weights and frames
+    float_trunk = ResNet18().cuda().eval()
+    float_trunk.load_state_dict({k: v for k, v in trunk.state_dict().items()
+                                 if k.split(".")[-1] not in ("q_stem", "q1", "q_out")})
+    with torch.inference_mode():
+        frames = video[0][:, None]
+        got, ref = trunk(frames).double(), float_trunk(frames).double()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    corr = torch.corrcoef(torch.stack([got.flatten(), ref.flatten()]))[0, 1].item()
+    print(f"int8 tower (bf16 stem) vs fp32 float tower on {frames.shape[0]} frames: "
+          f"rel {rel:.5f} (bar {FEAT_REL}), corr {corr:.6f} (bar {FEAT_CORR})")
+    if not (rel < FEAT_REL and corr > FEAT_CORR):
+        raise RuntimeError(f"int8 tower features: rel {rel}, corr {corr}")
 
 
 def main() -> None:
@@ -245,6 +476,7 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}")
     from avvad_tpu_torch.ops import _build, lstm_fused
+    from avvad_tpu_torch.processing import unique_frame_schedule
 
     info = _build.build(force=True)
     print(f"built {info['path']} in {info['seconds']:.1f} s")
@@ -253,8 +485,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(lstm_fused)
+    rows.update(int8_kernel_phase(B * unique_frame_schedule(T)[0]))
     main_path(lstm_fused, rows)
-    print(json.dumps({"kernels": [rows[sq] for sq in lstm_fused.STATE_QUANTS]}))
+    torch.cuda.empty_cache()
+    int8_path(rows)
+    print(json.dumps({"kernels": [rows[k] for k in (*lstm_fused.STATE_QUANTS,
+                                                    "k2", "k3")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

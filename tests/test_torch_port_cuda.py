@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from avvad_tpu_torch.ops import lstm_fused
+from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -84,4 +84,139 @@ def test_serving_fn_on_card_matches_cpu(cuda):
                                       video_frame_indices=idx, device=dev)
         probs[dev] = fn(wave, video).cpu()
     # fp32 throughout on both; cuDNN and CPU convs and DFTs reassociate
+    torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-4, rtol=0)
+
+
+def random_block(cin, cout, stride, seed, device):
+    """Seeded int8 weights and folded epilogue vectors for one fused block,
+    scaled so that the requantised values spread over [0, 127]."""
+    g = torch.Generator().manual_seed(seed)
+    w = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8)  # noqa: E731
+    vec = lambda lo, hi: torch.rand(cout, generator=g) * (hi - lo) + lo  # noqa: E731
+    args = {"w1": w(cout, 9 * cin), "w2": w(cout, 9 * cout),
+            "a1": vec(0.5, 1.5) * 64 / (73 * 73 * (9 * cin) ** 0.5),
+            "b1": vec(-20, 20),
+            "a2": vec(0.5, 1.5) * 64 / (73 * 40 * (9 * cout) ** 0.5),
+            "b2": vec(-20, 20)}
+    if stride != 1 or cin != cout:
+        args.update(wd=w(cout, cin), ad=vec(0.5, 1.5) * 64 / (73 * 73 * cin ** 0.5),
+                    bd=vec(-20, 20))
+    else:
+        args["res_scale"] = torch.tensor(0.37)
+    return {k: v.to(device) for k, v in args.items()}
+
+
+def _block(fn, x, spec, stride):
+    return fn(x, *conv_fused._block_args(spec), stride=stride)
+
+
+@pytest.mark.parametrize("geom", range(8))
+def test_int8_basic_block_matches_plain(cuda, geom):
+    """Each trunk geometry at a ragged N (37 frames: not a multiple of any
+    frames-per-CTA choice): the kernel is bit-identical to its plain
+    version (int32 sums exact, the same float32 operations)."""
+    h, stride = conv_fused.TRUNK_GEOM[geom]
+    cin = 64 if geom < 3 else conv_fused.TRUNK_WIDTHS[geom - 1]
+    cout = conv_fused.TRUNK_WIDTHS[geom]
+    spec = random_block(cin, cout, stride, geom, cuda)
+    g = torch.Generator().manual_seed(100 + geom)
+    x = torch.randint(-127, 128, (37, h, h, cin), generator=g, dtype=torch.int8).to(cuda)
+    before = conv_fused.launches["int8_basic_block"]
+    y = _block(conv_fused.basic_block_int8, x, spec, stride)
+    torch.cuda.synchronize()
+    assert conv_fused.launches["int8_basic_block"] - before == 1
+    ref = _block(conv_fused.basic_block_int8_plain, x, spec, stride)
+    ho = conv_fused.conv_out(h, stride)
+    assert y.shape == ref.shape == (37, ho, ho, cout)
+    assert ref.float().std() > 10  # the test spreads over the int8 range
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+def test_int8_trunk_kernels_match_plain(cuda):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(0, 128, (19, 17, 17, 64), generator=g, dtype=torch.int8).to(cuda)
+    specs, cin = [], 64
+    for i, ((_, stride), cout) in enumerate(zip(conv_fused.TRUNK_GEOM,
+                                                conv_fused.TRUNK_WIDTHS)):
+        specs.append(random_block(cin, cout, stride, 20 + i, cuda))
+        cin = cout
+    specs[-1]["out_scale"] = torch.tensor(0.05, device=cuda)
+    before = conv_fused.launches["int8_basic_block"]
+    feats = conv_fused.trunk_features_int8(x, specs)
+    torch.cuda.synchronize()
+    assert conv_fused.launches["int8_basic_block"] - before == 8
+    ref = x
+    for spec, (_, stride) in zip(specs, conv_fused.TRUNK_GEOM):
+        ref = _block(conv_fused.basic_block_int8_plain, ref, spec, stride)
+    ref = ref.reshape(19, 9, 512).sum(1, dtype=torch.int32).float() * (0.05 / 9.0)
+    assert feats.shape == (19, 512)
+    torch.testing.assert_close(feats, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stem_epilogue_matches_plain(cuda, dtype, layout):
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(37, 64, 34, 34, generator=g) * 3).to(cuda, dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    a = (torch.rand(64, generator=g) * 20 + 5).to(cuda)
+    b = (torch.randn(64, generator=g) * 10).to(cuda)
+    before = stem_fused.launches["stem_epilogue_pool"]
+    y = stem_fused.stem_epilogue_pool_quant(x, a, b)
+    torch.cuda.synchronize()
+    assert stem_fused.launches["stem_epilogue_pool"] - before == 1
+    ref = stem_fused.stem_epilogue_plain(x, a, b)
+    assert y.shape == (37, 17, 17, 64) and y.dtype == torch.int8
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "channels"])
+def test_int8_kernel_wrappers_raise(cuda, bad):
+    spec = random_block(64, 64, 1, 0, cuda)
+    x = torch.zeros(2, 17, 17, 64, dtype=torch.int8, device=cuda)
+    stem = torch.zeros(2, 64, 34, 34, device=cuda)
+    a = b = torch.ones(64, device=cuda)
+    if bad == "dtype":
+        x, stem = x.float(), stem.half()
+    elif bad == "layout":
+        x = x.transpose(1, 2)
+        stem = stem.transpose(2, 3)
+    else:
+        spec, x = random_block(48, 48, 1, 0, cuda), x[..., :48].contiguous()
+        stem, a, b = stem[:, :40].contiguous(), a[:40], b[:40]
+    with pytest.raises(ValueError):
+        _block(conv_fused.basic_block_int8, x, spec, 1)
+    with pytest.raises(ValueError):
+        stem_fused.stem_epilogue_pool_quant(stem, a, b)
+
+
+def test_int8_serving_fn_on_card_matches_cpu(cuda):
+    """The static-int8 AV step (fused tower, kernel LSTM) calibrated once on
+    the CPU, then served on the CPU (plain versions) and on the card
+    (kernels): the stem conv's float32 reassociation can flip a rounding
+    tie by one LSB, which the MCB normalisation damps."""
+    import copy
+
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD, calibrate
+
+    rng = np.random.default_rng(0)
+    wave = rng.normal(size=(2, 256 * 15 + 1024)).astype(np.float32)
+    video = rng.normal(size=(2, 8, 67, 67)).astype(np.float32)
+    idx = np.repeat(np.arange(8), 2)
+    model = AVVAD(lstm_hidden_size=64, lstm_layers=2, use_kernel_lstm=True,
+                  tower_int8=True, tower_quant_mode="static", tower_pallas=True)
+    calibrate(model, [(torch.zeros(2, 16, 513), torch.from_numpy(video))],
+              video_frame_indices=torch.from_numpy(idx))
+    probs = {}
+    for dev in ("cpu", "cuda"):
+        fn = make_waveform_serving_fn(copy.deepcopy(model), t_frames=16,
+                                      video_frame_indices=idx, device=dev)
+        conv_fused.reset_launches()
+        stem_fused.reset_launches()
+        probs[dev] = fn(wave, video).cpu()
+        expect = 8 if dev == "cuda" else 0
+        assert conv_fused.launches["int8_basic_block"] == expect
+        assert stem_fused.launches["stem_epilogue_pool"] == expect // 8
     torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-4, rtol=0)

@@ -53,6 +53,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert probs.shape == (1, 2, 1) and probs.device.type == "cpu"
 
 
+def test_video_serving_fn_raises_without_a_card(monkeypatch):
+    """The VideoVAD branch of the serving entry point, with the static-int8
+    fused tower: no card and no explicit CPU request -> raises."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import VideoVAD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = VideoVAD(lstm_hidden_size=8, lstm_layers=1, tower_int8=True,
+                     tower_quant_mode="static", tower_pallas=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_waveform_serving_fn(model)
+    probs = make_waveform_serving_fn(model, device="cpu")(
+        np.zeros((1, 2, 67, 67), np.float32))
+    assert probs.shape == (1, 2, 1) and probs.device.type == "cpu"
+
+
 @pytest.mark.parametrize("bad", ["state_quant", "w_shape", "h0_shape"])
 def test_lstm_wrapper_rejects_bad_arguments(bad):
     from avvad_tpu_torch.ops.lstm_fused import lstm_layer_fused
