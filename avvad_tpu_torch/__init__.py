@@ -4,7 +4,9 @@ It runs the audio-visual and the video-only waveform serving steps:
 log-power STFT frontend, ResNet-18 lip tower (float, or the static-int8
 trunk on the hand-written stem-epilogue and BasicBlock kernels), MCB
 fusion, two LSTM layers whose recurrence runs in hand-written CUDA kernels
-(``csrc/``), Dense, sigmoid.
+(``csrc/``), Dense, sigmoid. It trains ``AudioVAD`` and ``AVVAD`` with
+its ResNet trunk frozen (``train/``), the LSTM's forward and
+reverse-time backward in hand-written kernels too.
 The package imports torch, numpy and the standard library only; the JAX
 package ``avvad_tpu`` is its reference and is never imported here.
 Entry points run on ``cuda`` unless given ``device="cpu"``.

@@ -1,4 +1,6 @@
-"""JAX ``AVVAD`` / ``VideoVAD`` variables -> the port's ``state_dict``.
+"""JAX ``AVVAD`` / ``VideoVAD`` / ``AudioVAD`` variables -> the port's
+``state_dict`` (trained ones too: ``batch_stats`` become the BatchNorm
+running statistics).
 
 The input is the Flax variables tree as nested dicts of numpy arrays
 (``params``, ``batch_stats``, ``sketch`` and ``quant`` collections; the
@@ -35,8 +37,8 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
 
 
 def from_flax_variables(tree: Mapping) -> dict[str, torch.Tensor]:
-    """-> state_dict for ``avvad_tpu_torch.models.AVVAD`` or ``VideoVAD``
-    (strict load)."""
+    """-> state_dict for ``avvad_tpu_torch.models.AVVAD``, ``VideoVAD`` or
+    ``AudioVAD`` (strict load)."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats", "sketch", "quant"):
         for path, arr in _flatten(tree.get(collection, {})):

@@ -1,15 +1,19 @@
-// LSTM inference recurrence for Hopper (sm_90a): one kernel launch per time
+// LSTM forward recurrence for Hopper (sm_90a): one kernel launch per time
 // step, driven by a host loop on the caller's stream.
 //
-// Replaces the three inference Pallas kernels of avvad_tpu/ops/lstm_pallas.py:
+// Replaces the forward Pallas kernels of avvad_tpu/ops/lstm_pallas.py:
 //   lstm_f32h   <- _lstm_kernel       via _fwd_infer_call  (state_quant "none")
 //   lstm_bf16h  <- _lstm_kernel_hbf16 via _fwd_quant_call  (state_quant "bf16")
 //   lstm_int8   <- _lstm_kernel_int8  via _fwd_quant_call  (state_quant "int8")
+//   lstm_fwd_train_f32h <- _lstm_fwd_train_kernel via _fwd_train_call (the
+//       forward of training: lstm_f32h plus two stores per cell, c_t and the
+//       post-activation gates [i, f, g, o], the residuals of the backward in
+//       lstm_train.cu; a compile-time mode, so lstm_f32h's code is unchanged)
 // Per step:  gates = xp[:, t] + h_{t-1} . W_hh   (gate order [i, f, g, o])
 //            c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c);  y[:, t] = h
 //
 // Numerics, as the TPU kernels define them:
-//  - f32h: h stays fp32; W_hh is the bf16-ROUNDED weight widened to fp32;
+//  - f32h (and fwd_train): h stays fp32; W_hh is the bf16-ROUNDED weight widened to fp32;
 //    fp32 accumulation. An fp32 x bf16 product has no tensor-core form, so
 //    this runs as fp32 FMA on the CUDA cores.
 //  - bf16h: h is rounded to bf16 (round-to-nearest-even, as astype) before
@@ -32,6 +36,9 @@
 // blocks never race) and c is updated in place by the thread that owns it.
 // A weight-stationary persistent kernel (W slice resident in shared memory,
 // grid-wide barrier per step) is the later, faster design.
+// fwd_train writes 5 more floats per cell and step (c_t and four gates):
+// at the training shape (B=16, T=512, H=1024) 168 MB more, still far below
+// its 2*B*T*H*4H operations at the fp32 CUDA-core rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,20 +52,23 @@ constexpr int JT = 32;  // hidden units per block: one per lane
 constexpr int BT = 8;   // batch rows per block
 constexpr int NW = 8;   // warps per block; they split the contraction
 
-enum Mode { kF32H = 0, kBf16H = 1, kInt8 = 2 };
+enum Mode { kF32H = 0, kBf16H = 1, kInt8 = 2, kF32HTrain = 3 };
 
 __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
 // One time step. xp / y / h_in point at row 0 of step t (t-1 for h_in);
-// *_row are the strides between batch rows, in elements.
+// *_row are the strides between batch rows, in elements. kF32HTrain also
+// stores c_t at c_seq (rows of y_row) and the activated gates at g_seq
+// (rows of xp_row); the other modes get null pointers there.
 template <int MODE>
 __global__ void __launch_bounds__(NW * 32)
 lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
                  const void* __restrict__ w, const float* __restrict__ ws,
                  const float* __restrict__ h_in, long long h_row,
                  float* __restrict__ c, float* __restrict__ y, long long y_row,
+                 float* __restrict__ c_seq, float* __restrict__ g_seq,
                  int B, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -191,12 +201,21 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
     const float cn = __fadd_rn(__fmul_rn(fg, c[cidx]), __fmul_rn(ig, gg));
     c[cidx] = cn;
     y[b * y_row + jj] = __fmul_rn(og, tanhf(cn));
+    if (MODE == kF32HTrain) {
+      c_seq[b * y_row + jj] = cn;
+      float* gp = g_seq + b * xp_row + jj;
+      gp[0] = ig;
+      gp[H] = fg;
+      gp[2 * H] = gg;
+      gp[3 * H] = og;
+    }
   }
 }
 
 template <int MODE>
 int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
-              float* c, float* y, int B, int T, int H, cudaStream_t stream) {
+              float* c, float* y, float* c_seq, float* g_seq, int B, int T, int H,
+              cudaStream_t stream) {
   const size_t stage = MODE == kInt8 ? (size_t)BT * (H / 4) * 4 : (size_t)BT * H * 4;
   const size_t reduce = (size_t)NW * BT * 4 * 32 * 4;
   const size_t smem = stage > reduce ? stage : reduce;
@@ -212,7 +231,9 @@ int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
     const long long h_row = t == 0 ? (long long)H : y_row;
     lstm_step_kernel<MODE><<<grid, NW * 32, smem, stream>>>(
         xp + (size_t)t * 4 * H, xp_row, w, ws, h_in, h_row, c,
-        y + (size_t)t * H, y_row, B, H);
+        y + (size_t)t * H, y_row,
+        MODE == kF32HTrain ? c_seq + (size_t)t * H : nullptr,
+        MODE == kF32HTrain ? g_seq + (size_t)t * 4 * H : nullptr, B, H);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -226,12 +247,14 @@ int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
 // first cudaGetLastError() that is not cudaSuccess, else 0.
 extern "C" int lstm_f32h(const float* xp, const void* w, const float* h0, float* c,
                          float* y, int B, int T, int H, void* stream) {
-  return run_layer<kF32H>(xp, w, nullptr, h0, c, y, B, T, H, (cudaStream_t)stream);
+  return run_layer<kF32H>(xp, w, nullptr, h0, c, y, nullptr, nullptr, B, T, H,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int lstm_bf16h(const float* xp, const void* w, const float* h0, float* c,
                           float* y, int B, int T, int H, void* stream) {
-  return run_layer<kBf16H>(xp, w, nullptr, h0, c, y, B, T, H, (cudaStream_t)stream);
+  return run_layer<kBf16H>(xp, w, nullptr, h0, c, y, nullptr, nullptr, B, T, H,
+                          (cudaStream_t)stream);
 }
 
 // wq: (H/4, 4H) int32 words, byte e of word [k4, n] = Wq[4 k4 + e, n];
@@ -239,5 +262,15 @@ extern "C" int lstm_bf16h(const float* xp, const void* w, const float* h0, float
 extern "C" int lstm_int8(const float* xp, const void* wq, const float* ws,
                          const float* h0, float* c, float* y, int B, int T, int H,
                          void* stream) {
-  return run_layer<kInt8>(xp, wq, ws, h0, c, y, B, T, H, (cudaStream_t)stream);
+  return run_layer<kInt8>(xp, wq, ws, h0, c, y, nullptr, nullptr, B, T, H,
+                         (cudaStream_t)stream);
+}
+
+// lstm_f32h that also writes c_seq (B, T, H) f32 (c_t of every step) and
+// gates (B, T, 4H) f32 (sig(i), sig(f), tanh(g), sig(o) of every step).
+extern "C" int lstm_fwd_train_f32h(const float* xp, const void* w, const float* h0,
+                                   float* c, float* y, float* c_seq, float* gates,
+                                   int B, int T, int H, void* stream) {
+  return run_layer<kF32HTrain>(xp, w, nullptr, h0, c, y, c_seq, gates, B, T, H,
+                               (cudaStream_t)stream);
 }

@@ -5,7 +5,9 @@ and one ``bias`` (4H,), gate order [i, f, g, o]. The input projection of
 all time steps is hoisted into one matmul; the recurrence runs through
 ``ops.lstm_fused.lstm_layer_fused`` (the CUDA kernels on the card) unless
 carries are given or requested, where it is a plain loop, as the JAX
-module falls back to its scan (lstm.py:72).
+module falls back to its scan (lstm.py:72). Under autograd that op runs
+the training kernels with JAX's custom VJP (``LSTMRecurrence``): W_hh,
+W_ih, the bias and the input all get their gradients.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ computed in fp32, a -inf-padded 3x3/2 max pool, four stages of two
 BasicBlocks (64, 128, 256, 512) with 1x1/2 downsample shortcuts (flax
 ``SAME`` at 17 -> 9 -> 5 -> 3 pads nothing, as torch's padding 0), and a
 global mean pool. With ``dtype=bfloat16`` the convs run in bf16 and every
-BatchNorm output is fp32, as in the JAX module. The convs are plain cuDNN
+BatchNorm output is fp32, as in the JAX module. In train mode every
+BatchNorm normalises with batch statistics and updates its running ones by
+flax's rule (``batch_norm``), with the params frozen or not. The convs are plain cuDNN
 convolutions: the JAX package leaves them to XLA, outside any Pallas kernel.
 
 ``quant_int8`` turns on the W8A8 trunk (resnet.py:204-225,364-461): the
@@ -49,8 +51,33 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     return F.conv2d(x.to(dtype), w.to(dtype), stride=stride, padding=padding)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return bn(x.float())
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               fast_variance: bool = True) -> torch.Tensor:
+    """flax ``nn.BatchNorm(momentum=0.9)`` over every axis of ``x`` but the
+    channel axis 1, in fp32. Eval mode: ``bn`` with its running statistics.
+    Train mode: the batch mean and BIASED variance (``fast_variance``:
+    E[x^2] - E[x]^2 clamped at 0, flax's default; else the two-pass
+    E[(x - mean)^2]), normalised in flax's order (x - mean) * (rsqrt(var +
+    eps) * scale) + bias, and the running statistics updated as flax does,
+    ra = (1 - m) ra + m batch with torch's momentum m = 0.1 (flax's 0.9)
+    and the biased variance (torch's own update would take the unbiased
+    one). Gradients flow through the batch statistics."""
+    x = x.float()
+    if not bn.training:
+        return bn(x)
+    axes = [0, *range(2, x.ndim)]
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    mean = x.mean(axes)
+    if fast_variance:
+        var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
+    else:
+        var = torch.mean(torch.square(x - mean.view(shape)), axes)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
 def _bn_int8(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
@@ -159,11 +186,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.relu(_bn(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt)))
-        y = _bn(self.bn2, _conv(y, self.conv2.weight, 1, 1, dt))
+        y = F.relu(batch_norm(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt)))
+        y = batch_norm(self.bn2, _conv(y, self.conv2.weight, 1, 1, dt))
         residual = x
         if self.has_downsample:
-            residual = _bn(self.downsample_bn, _conv(
+            residual = batch_norm(self.downsample_bn, _conv(
                 x, self.downsample_conv.weight, self.stride, 0, dt))
         return F.relu(y + residual)
 
@@ -223,7 +250,7 @@ class ResNet18(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.quant_int8:
-            x = F.relu(_bn(self.bn1, self.conv1(x)))
+            x = F.relu(batch_norm(self.bn1, self.conv1(x)))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for block in self.blocks():
                 x = block(x)

@@ -1,14 +1,18 @@
-"""Video and audio-visual VAD models (port of avvad_tpu/models/vad_nets.py:
-_VideoTower, VideoVAD and AVVAD, inference), with the float tower or the
-W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and static
-scales).
+"""The VAD models (port of avvad_tpu/models/vad_nets.py: AudioVAD,
+_VideoTower, VideoVAD and AVVAD), with the float tower or, for inference,
+the W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and
+static scales).
 
-Children carry the JAX parameter tree's names (``tower.features``,
-``mcb``, ``mcb_bn``, ``lstm_merged``, ``vad_merged``) so
-``convert.from_flax_variables`` maps one onto the other by rule. The
-post-MCB BatchNorm normalises every (batch, time) position per channel
-with eps 1e-8, and the L2 norm before it is taken over the WHOLE tensor:
-the batch rows couple through it, as in the reference.
+Children carry the JAX parameter tree's names (``lstm_audio``,
+``vad_audio``, ``tower.features``, ``mcb``, ``mcb_bn``, ``lstm_merged``,
+``vad_merged``) so ``convert.from_flax_variables`` maps one onto the
+other by rule. The post-MCB BatchNorm normalises every (batch, time)
+position per channel with eps 1e-8, padded frames included, and the L2
+norm before it is taken over the WHOLE tensor: the batch rows couple
+through it, as in the reference. ``model.train()`` is JAX's
+``train=True``: every BatchNorm (the frozen trunk's too) takes batch
+statistics and updates its running ones (``resnet.batch_norm``).
+Dropout is not ported: ``dropout_rate`` > 0 raises.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from torch import nn
 
 from .lstm import LSTMStack, select_last
 from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
-from .resnet import ResNet18, lecun_normal_
+from .resnet import ResNet18, batch_norm, lecun_normal_
 
 
 class _VideoTower(nn.Module):
@@ -46,7 +50,9 @@ class _VideoTower(nn.Module):
         frames = video.reshape(b * t, 1, h, w)
         n = b * t
         trunk = self.features
-        chunkable = not (trunk.quant_int8 and trunk.quant_mode != "static")
+        # training takes the BatchNorm statistics over the whole frame batch
+        chunkable = not (self.training or (trunk.quant_int8
+                                           and trunk.quant_mode != "static"))
         if chunkable and self.chunk and n > self.chunk:
             feats = torch.cat([self.features(frames[i:i + self.chunk])
                                for i in range(0, n, self.chunk)])
@@ -61,6 +67,41 @@ def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas):
                        stages_pallas=tower_pallas)
 
 
+def _no_dropout(dropout_rate: float) -> None:
+    if dropout_rate:
+        raise NotImplementedError("dropout is not ported yet: use "
+                                  "dropout_rate=0 (the reference's setting)")
+
+
+def _head(hidden: int, y_dim: int, g: torch.Generator) -> nn.Linear:
+    dense = nn.Linear(hidden, y_dim)
+    lecun_normal_(dense.weight, g)
+    nn.init.zeros_(dense.bias)
+    return dense
+
+
+class AudioVAD(nn.Module):
+    """Log-power frames (B, T, 513) -> LSTM stack -> Dense logits
+    (B, T, y_dim) (vad_nets.py:35-66), the reference's audio-only model."""
+
+    def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
+                 lstm_layers: int = 2, num_audio_features: int = 513,
+                 dtype: torch.dtype = torch.float32,
+                 use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
+                 dropout_rate: float = 0.0, seed: int = 0):
+        super().__init__()
+        _no_dropout(dropout_rate)
+        g = torch.Generator().manual_seed(seed)
+        self.lstm_audio = LSTMStack(num_audio_features, lstm_hidden_size,
+                                    lstm_layers, dtype=dtype,
+                                    use_kernel=use_kernel_lstm,
+                                    state_quant=lstm_state_quant, generator=g)
+        self.vad_audio = _head(lstm_hidden_size, y_dim, g)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        return self.vad_audio(self.lstm_audio(audio.float()).float())
+
+
 class VideoVAD(nn.Module):
     """Video tower -> LSTM stack -> Dense logits (vad_nets.py:191-239),
     with the ``return_last`` last-valid-step mode."""
@@ -70,8 +111,10 @@ class VideoVAD(nn.Module):
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
                  tower_pallas: bool = False, tower_chunk: int = 0,
-                 num_video_features: int = 512, seed: int = 0):
+                 num_video_features: int = 512, dropout_rate: float = 0.0,
+                 seed: int = 0):
         super().__init__()
+        _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.tower = _tower(dtype, tower_chunk, g, tower_int8,
                             tower_quant_mode, tower_pallas)
@@ -79,9 +122,7 @@ class VideoVAD(nn.Module):
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
                                     state_quant=lstm_state_quant, generator=g)
-        self.vad_video = nn.Linear(lstm_hidden_size, y_dim)
-        lecun_normal_(self.vad_video.weight, g)
-        nn.init.zeros_(self.vad_video.bias)
+        self.vad_video = _head(lstm_hidden_size, y_dim, g)
 
     def forward(self, video: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 return_last: bool = False,
@@ -112,8 +153,10 @@ class AVVAD(nn.Module):
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  tower_chunk: int = 0, mcb_folded_vars: bool = False,
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
-                 tower_pallas: bool = False, seed: int = 0):
+                 tower_pallas: bool = False, dropout_rate: float = 0.0,
+                 seed: int = 0):
         super().__init__()
+        _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.use_mcb = use_mcb
         self.eps = eps
@@ -130,9 +173,7 @@ class AVVAD(nn.Module):
         self.lstm_merged = LSTMStack(fused, lstm_hidden_size, lstm_layers,
                                      dtype=dtype, use_kernel=use_kernel_lstm,
                                      state_quant=lstm_state_quant, generator=g)
-        self.vad_merged = nn.Linear(lstm_hidden_size, y_dim)
-        lecun_normal_(self.vad_merged.weight, g)
-        nn.init.zeros_(self.vad_merged.bias)
+        self.vad_merged = _head(lstm_hidden_size, y_dim, g)
 
     def set_lstm_state_quant(self, state_quant: str) -> None:
         for cell in self.lstm_merged.layers():
@@ -143,7 +184,9 @@ class AVVAD(nn.Module):
             return torch.cat([audio, v], dim=-1)
         y = global_l2_normalize(signed_sqrt(self.mcb(audio, v), self.eps))
         c = y.shape[-1]
-        return self.mcb_bn(y.reshape(-1, c)).reshape(y.shape)
+        # two-pass variance: flax's use_fast_variance=False (vad_nets.py:304-310)
+        return batch_norm(self.mcb_bn, y.reshape(-1, c),
+                          fast_variance=False).reshape(y.shape)
 
     def forward(self, audio: torch.Tensor, video: torch.Tensor,
                 video_frame_indices: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -28,16 +28,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch counts, outputs, the step against the same step with the plain
    K2/K3 versions, times, stages and a profile line; and the int8 tower's
    features against the fp32 float tower's on the same frames;
-7. one {"kernels": [...]} line, then the ok line with the device.
+7. the training kernels against their plain versions at the training
+   shape (B=16, T=512, H=1024) and the ragged one: K1d (forward with
+   residuals), K1e (reverse-time backward), and the four gradients of the
+   autograd Function that joins them; CUDA-event times of each kernel and
+   its plain version, one cuDNN torch.nn.LSTM layer's forward with grad
+   (K1d) and backward (K1e), and the bounds;
+8. the full-width AV train step (fp32, frozen ResNet-18 trunk in train
+   mode, MCB 1024, 2 x LSTM 1024, Adam 1e-4, B=16, T=512, seeded batch on
+   the card): launch counters, loss and metrics, the step's gradients
+   against the same step with the plain recurrence, ms/step (best of 3
+   after a warm-up), x real time, peak memory, stage times by CUDA events
+   (inputs, tower, fusion, LSTM forward, head and loss, backward,
+   optimizer, metrics) and one {"profile": ...} line; then the audio
+   (AudioVAD) train step at the same B, T and H;
+9. a short Trainer.fit (one epoch of 2 batches and an eval pass, K1a) of
+   the AV model with a checkpoint round trip into a temporary directory
+   under build/: the restored state equals the saved one, and one more
+   step from each agrees;
+10. one {"kernels": [...]} line, then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,6 +101,33 @@ PROB_TOL = 1e-4
 # spans of the serving step between the CUDA events that stage_hooks and
 # timed_step record
 STAGES = ("frontend", "tower", "fusion", "lstm", "head")
+# the training slice: the reference recipe that bench.py --train sizes
+TRAIN_B = 16
+TRAIN_REPLACES = {"fwd_train": "avvad_tpu/ops/lstm_pallas.py:279",
+                  "bwd": "avvad_tpu/ops/lstm_pallas.py:314"}
+TRAIN_SOURCES = {"fwd_train": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+                 "bwd": "avvad_tpu_torch/csrc/lstm_train.cu"}
+# K1d against its plain version: K1a's arithmetic (KERNEL_TOL["none"]).
+# K1e, the Function's gradients and a train step's gradients against the
+# plain recurrence on the same card: fp32 sums in another order over T
+# reverse steps, as the largest error over the largest |plain| value.
+# H100 80GB HBM3 (700 W) readings: K1d 3.6e-7; K1e 5.8e-7, the Function's
+# gradients 6.2e-7; train steps 7.2e-7 (AV) and 7.8e-7 (audio), loss equal
+TRAIN_REL_TOL = 1e-4
+STEP_GRAD_REL_TOL = 1e-3
+# the step's loss, kernel recurrence against plain
+STEP_LOSS_REL_TOL = 1e-5
+# spans of a train step between the CUDA events of train_marks and
+# timed_train_step, by the marks that bound them
+TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end"): "tower",
+                ("tower_end", "lstm_start"): "fusion",
+                ("start", "lstm_start"): "inputs",
+                ("lstm_start", "lstm_end"): "lstm_forward",
+                ("lstm_end", "backward_start"): "head_loss",
+                ("backward_start", "optimizer_start"): "backward",
+                ("optimizer_start", "optimizer_end"): "optimizer",
+                ("optimizer_end", "end"): "metrics"}
+BUILD = Path(__file__).resolve().parent / "build"
 
 
 def card_line() -> str:
@@ -274,10 +323,10 @@ def int8_kernel_phase(n_frames: int) -> dict:
     return rows
 
 
-def _mark(marks: list) -> None:
+def _mark(marks: list, name: str = "") -> None:
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
-    marks.append(ev)
+    marks.append((name, ev))
 
 
 def stage_hooks(model, marks: list) -> list:
@@ -302,18 +351,18 @@ def timed_step(fn, wave, video, marks: list) -> tuple[float, dict]:
     _mark(marks)
     torch.cuda.synchronize()
     step = time.perf_counter() - t0
-    return step, {s: marks[i].elapsed_time(marks[i + 1])
+    return step, {s: marks[i][1].elapsed_time(marks[i + 1][1])
                   for i, s in enumerate(STAGES)}
 
 
-def profile_step(fn, wave, video) -> dict:
-    """One serving step under torch.profiler -> device busy time, idle
+def profile_step(fn, *args) -> dict:
+    """One step fn(*args) under torch.profiler -> device busy time, idle
     share and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(wave, video)
+        fn(*args)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side entries only: a CPU op's self device time repeats its kernels'
@@ -470,6 +519,290 @@ def int8_path(rows):
         raise RuntimeError(f"int8 tower features: rel {rel}, corr {corr}")
 
 
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref| over the largest |ref|."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def plain_recurrence(lstm_fused):
+    """LSTMRecurrence with the plain K1d / K1e versions on the card."""
+    saved = lstm_fused.lstm_fwd_train, lstm_fused.lstm_bwd
+    lstm_fused.lstm_fwd_train = lstm_fused.lstm_fwd_train_plain
+    lstm_fused.lstm_bwd = lstm_fused.lstm_bwd_plain
+    try:
+        yield
+    finally:
+        lstm_fused.lstm_fwd_train, lstm_fused.lstm_bwd = saved
+
+
+def train_inputs(b: int, t: int, h: int, seed: int) -> tuple:
+    """x_proj, W_hh, h0, c0 and a cotangent dy, seeded, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, t, 4 * h, generator=g).cuda(),
+            (torch.randn(h, 4 * h, generator=g) / h ** 0.5).cuda(),
+            torch.tanh(torch.randn(b, h, generator=g)).cuda(),
+            torch.randn(b, h, generator=g).cuda(),
+            torch.randn(b, t, h, generator=g).cuda())
+
+
+def function_grads(lstm_fused, xp, w, h0, c0, dy) -> list:
+    args = [a.clone().requires_grad_() for a in (xp, w, h0, c0)]
+    lstm_fused.LSTMRecurrence.apply(*args).backward(dy)
+    return [a.grad for a in args]
+
+
+def train_bound(b: int, t: int, h: int, kind: str) -> tuple[float, str]:
+    """Least time of one layer's K1d or K1e: 2*B*T*H*4H operations at the
+    fp32 CUDA-core peak (an fp32 x bf16 product has no tensor-core form)
+    against the bytes, each input read once and each output written once:
+    K1d x_proj, W_hh (bf16), h0, c0 in, y, c_seq, gates out; K1e dy,
+    c_seq, c_prev, gates, W^T (bf16) in, d_gates, dh0, dc0 out."""
+    flops = 2.0 * b * t * h * 4 * h
+    if kind == "fwd_train":
+        nbytes = 4 * (2 * b * t * 4 * h + 2 * b * t * h + 2 * b * h) + 2 * h * 4 * h
+    else:
+        nbytes = 4 * (2 * b * t * 4 * h + 3 * b * t * h + 2 * b * h) + 2 * h * 4 * h
+    t_ops, t_bytes = flops / PEAK["none"], nbytes / MEM_BW
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_kernel_phase(lstm_fused) -> dict:
+    """K1d, K1e and the Function's gradients against their plain versions
+    at the training shape and the ragged one; times, library times and
+    bounds at the training shape -> kernel rows."""
+    errs = {"fwd_train": [], "bwd": [], "grads": []}
+    for b, t, h in ((TRAIN_B, T, H), RAGGED):
+        xp, w, h0, c0, dy = train_inputs(b, t, h, seed=6)
+        y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
+        torch.cuda.synchronize()
+        ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
+        errs["fwd_train"].append(max((a - r).abs().max().item()
+                                     for a, r in zip((y, c_seq, gates), ref)))
+        c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
+        got = lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w)
+        torch.cuda.synchronize()
+        ref = lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w)
+        errs["bwd"].append(max(rel_err(a, r) for a, r in zip(got, ref)))
+        got = function_grads(lstm_fused, xp, w, h0, c0, dy)
+        with plain_recurrence(lstm_fused):
+            ref = function_grads(lstm_fused, xp, w, h0, c0, dy)
+        errs["grads"].append(max(rel_err(a, r) for a, r in zip(got, ref)))
+        print(f"training kernels B={b} T={t} H={h}: K1d max|kernel-plain| "
+              f"{errs['fwd_train'][-1]:.3e} (tol {KERNEL_TOL['none']:g}); K1e "
+              f"rel {errs['bwd'][-1]:.3e}, Function grads (dx_proj, dW_hh, dh0, "
+              f"dc0) rel {errs['grads'][-1]:.3e} (tol {TRAIN_REL_TOL:g})")
+        if not (errs["fwd_train"][-1] <= KERNEL_TOL["none"]
+                and errs["bwd"][-1] <= TRAIN_REL_TOL and errs["grads"][-1] <= TRAIN_REL_TOL):
+            raise RuntimeError(f"training kernels disagree with plain: {errs}")
+    xp, w, h0, c0, dy = train_inputs(TRAIN_B, T, H, seed=7)
+    y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
+    c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
+    lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
+    x_in = torch.randn(TRAIN_B, T, H, device="cuda", requires_grad=True)
+    out = lstm(x_in)[0]
+    calls = {
+        "fwd_train": (lambda: lstm_fused.lstm_fwd_train(xp, w, h0, c0),
+                      lambda: lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0),
+                      lambda: lstm(x_in)),
+        "bwd": (lambda: lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w),
+                lambda: lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w),
+                lambda: torch.autograd.grad(out, [x_in, *lstm.parameters()], dy,
+                                            retain_graph=True))}
+    rows = {}
+    for kind, (kernel, plain, library) in calls.items():
+        ms, plain_ms, library_ms = cuda_ms(kernel, 5), cuda_ms(plain, 2), cuda_ms(library, 5)
+        bound_ms, bound_by = train_bound(TRAIN_B, T, H, kind)
+        print(f"{lstm_fused.KERNEL_NAMES[kind]} B={TRAIN_B} T={T} H={H}: kernel {ms:.3f} "
+              f"ms/layer, plain {plain_ms:.3f}, cuDNN LSTM layer "
+              f"{'forward with grad' if kind == 'fwd_train' else 'backward'} "
+              f"{library_ms:.3f}, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{PEAK_NAME['none']} peak, {MEM_BW / 1e12} TB/s)")
+        rows[kind] = {"name": lstm_fused.KERNEL_NAMES[kind], "route": "cuda",
+                      "source": TRAIN_SOURCES[kind], "replaces": TRAIN_REPLACES[kind],
+                      "launches": None,
+                      "max_abs_err": max(errs[kind]) if kind == "fwd_train"
+                      else max(errs["bwd"] + errs["grads"]),
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+    return rows
+
+
+def train_batch(t: int, b: int, av: bool, seed: int):
+    """A seeded batch on the card (as a prefetcher leaves it): ragged
+    lengths in [t/2, t] (the first full), random labels on valid frames."""
+    from avvad_tpu_torch.data import Batch
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(t // 2, t + 1, size=b)
+    lengths[0] = t
+    mask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
+    label = (rng.random((b, t, 1)) > 0.5).astype(np.float32) * mask[..., None]
+    cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return Batch(audio=cuda(rng.standard_normal((b, t, 513), np.float32)),
+                 video=cuda(rng.standard_normal((b, t, 67, 67), np.float32)) if av else None,
+                 label=cuda(label), lengths=lengths, mask=cuda(mask))
+
+
+def train_marks(model, optimizer, marks: list) -> list:
+    """Hooks that record CUDA events inside a train step at the tower's and
+    the LSTM stack's edges, when the logits' gradient is formed (the start
+    of the backward pass) and around the optimizer step -> handles."""
+    def mark(name):
+        return lambda *_: _mark(marks, name)
+
+    handles = []
+    if hasattr(model, "tower"):
+        handles += [model.tower.register_forward_pre_hook(mark("tower_start")),
+                    model.tower.register_forward_hook(mark("tower_end"))]
+    lstm = model.lstm_merged if hasattr(model, "lstm_merged") else model.lstm_audio
+    def on_logits(_module, _inputs, logits):
+        logits.register_hook(mark("backward_start"))
+
+    handles += [lstm.register_forward_pre_hook(mark("lstm_start")),
+                lstm.register_forward_hook(mark("lstm_end")),
+                model.register_forward_hook(on_logits),
+                optimizer.register_step_pre_hook(mark("optimizer_start")),
+                optimizer.register_step_post_hook(mark("optimizer_end"))]
+    return handles
+
+
+def timed_train_step(step, state, batch, marks: list) -> tuple[float, dict]:
+    """One train step -> (host seconds to the end of its device work,
+    {stage: device ms})."""
+    marks.clear()
+    t0 = time.perf_counter()
+    _mark(marks, "start")
+    step(state, batch)
+    _mark(marks, "end")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dt, {TRAIN_STAGES[(a, b)]: ea.elapsed_time(eb)
+                for (a, ea), (b, eb) in zip(marks, marks[1:])}
+
+
+def train_path(rows: dict, modality: str):
+    """One train step at full width with launch counters and the plain
+    recurrence's step as reference, then 3 timed steps and a profiled one
+    -> the train state."""
+    from avvad_tpu_torch.models import AVVAD, AudioVAD
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    av = modality == "av"
+    model = (AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                   use_kernel_lstm=True, seed=0) if av
+             else AudioVAD(lstm_hidden_size=H, lstm_layers=2, use_kernel_lstm=True, seed=0))
+    reference = copy.deepcopy(model)
+    state = create_train_state(model, learning_rate=1e-4, freeze_video_trunk=av)
+    step = make_train_step(modality)
+    batch = train_batch(T, TRAIN_B, av, seed=8)
+    print(f"train path {modality}: {type(model).__name__} fp32, LSTM 2x{H}"
+          f"{', MCB 1024, ResNet-18 frozen (train-mode BatchNorm)' if av else ''}, "
+          f"Adam 1e-4, B={TRAIN_B} T={T}, lengths {batch.lengths.tolist()}")
+    for mod in (lstm_fused, conv_fused, stem_fused):
+        mod.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+    expect = {k: 0 for k in counts}
+    expect.update(fwd_train=2 * T, bwd=2 * (T + 1))
+    if counts != expect:
+        raise RuntimeError(f"train {modality}: launch counts {counts}, expected {expect}")
+    if av:
+        rows["fwd_train"]["launches"] = counts["fwd_train"]
+        rows["bwd"]["launches"] = counts["bwd"]
+    m = {k: v.item() for k, v in metrics.items()}
+    if not (np.isfinite(m["loss"]) and all(0 <= m[k] <= 1 for k in m if k != "loss")):
+        raise RuntimeError(f"train {modality}: bad metrics {m}")
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters() if p.grad is not None}
+    ref_state = create_train_state(reference, learning_rate=1e-4, freeze_video_trunk=av)
+    with plain_recurrence(lstm_fused):
+        _, ref_metrics = step(ref_state, batch)
+    ref_grads = {n: p.grad for n, p in ref_state.model.named_parameters()
+                 if p.grad is not None}
+    if grads.keys() != ref_grads.keys():
+        raise RuntimeError(f"train {modality}: gradients of {sorted(grads)} "
+                           f"against {sorted(ref_grads)}")
+    grad_err = max(rel_err(grads[n], ref_grads[n]) for n in grads)
+    loss_err = abs(m["loss"] - ref_metrics["loss"].item()) / abs(ref_metrics["loss"].item())
+    del ref_state, reference, ref_grads
+    torch.cuda.empty_cache()
+    print(f"train {modality}: launches {counts['fwd_train']} K1d, {counts['bwd']} K1e, "
+          f"{counts['none']} K1a; metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
+          f"against the plain recurrence: grads rel {grad_err:.3e} (tol "
+          f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors, loss rel {loss_err:.3e} "
+          f"(tol {STEP_LOSS_REL_TOL:g})")
+    if grad_err > STEP_GRAD_REL_TOL or loss_err > STEP_LOSS_REL_TOL:
+        raise RuntimeError(f"train {modality}: step vs plain recurrence {grad_err}, {loss_err}")
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    hooks = train_marks(state.model, state.optimizer, marks)
+    try:
+        reps = [timed_train_step(step, state, batch, marks) for _ in range(3)]
+    finally:
+        for hk in hooks:
+            hk.remove()
+    dt, stage_ms = min(reps, key=lambda r: r[0])
+    print(f"train {modality}: {1e3 * dt:.2f} ms/step (reps "
+          f"{[round(1e3 * r[0], 2) for r in reps]}), {TRAIN_B * T / FRAME_RATE / dt:.1f}x "
+          f"real time, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"profile": f"train/{modality}", "stage_ms": stage_ms,
+                      **profile_step(step, state, batch)}))
+    return state
+
+
+def trainer_phase(state) -> None:
+    """Trainer.fit for one epoch (2 train batches and 1 eval batch of B=4,
+    T=128) on the AV state, a checkpoint round trip, and one more step
+    from the saved and from the restored state."""
+    from avvad_tpu_torch.models import AVVAD
+    from avvad_tpu_torch.ops import lstm_fused
+    from avvad_tpu_torch.train import (Trainer, create_train_state, latest_checkpoint,
+                                       make_train_step, restore_checkpoint)
+
+    t = 128
+    train = [train_batch(t, 4, True, seed=s) for s in (10, 11)]
+    valid = [train_batch(t, 4, True, seed=12)]
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as model_dir:
+        lstm_fused.reset_launches()
+        t0 = time.perf_counter()
+        last = Trainer(state, "av", model_dir).fit(train, valid, end_epoch=2)
+        torch.cuda.synchronize()
+        counts = dict(lstm_fused.launches)
+        expect = {k: 0 for k in counts}
+        expect.update(fwd_train=2 * 2 * t, bwd=2 * 2 * (t + 1), none=2 * t)
+        if counts != expect:
+            raise RuntimeError(f"Trainer.fit: launch counts {counts}, expected {expect}")
+        logs = {name: (Path(model_dir) / name).read_text().splitlines()
+                for name in ("output_batch.log", "output_epoch.log")}
+        path = latest_checkpoint(model_dir)
+        if len(logs["output_batch.log"]) != 2 or len(logs["output_epoch.log"]) != 4 \
+                or path is None:
+            raise RuntimeError(f"Trainer.fit: logs {logs}, checkpoint {path}")
+        fresh = create_train_state(
+            AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                  use_kernel_lstm=True, seed=1), freeze_video_trunk=True)
+        fresh, _, epoch = restore_checkpoint(model_dir, fresh)
+        print(f"Trainer.fit: 1 epoch in {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts}; valid {json.dumps({k: round(v, 4) for k, v in last['valid'].items()})}; "
+              f"restored {Path(path).name} (epoch {epoch}, step {fresh.step})")
+    want, got = state.model.state_dict(), fresh.model.state_dict()
+    if want.keys() != got.keys() or any(not torch.equal(want[k], got[k]) for k in want) \
+            or fresh.step != state.step:
+        raise RuntimeError("restored state differs from the saved one")
+    step = make_train_step("av")
+    for s in (state, fresh):
+        step(s, train[0])
+    err = max((a - b).abs().max().item() for a, b in
+              zip(state.model.parameters(), fresh.model.parameters()))
+    print(f"one more step from the saved and the restored state: max |param diff| "
+          f"{err:.3e} (tol 1e-6)")
+    if err > 1e-6:
+        raise RuntimeError(f"resumed step differs: {err}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -489,7 +822,15 @@ def main() -> None:
     main_path(lstm_fused, rows)
     torch.cuda.empty_cache()
     int8_path(rows)
+    torch.cuda.empty_cache()
+    rows.update(train_kernel_phase(lstm_fused))
+    state = train_path(rows, "av")
+    torch.cuda.empty_cache()
+    train_path(rows, "audio")
+    torch.cuda.empty_cache()
+    trainer_phase(state)
     print(json.dumps({"kernels": [rows[k] for k in (*lstm_fused.STATE_QUANTS,
+                                                    *lstm_fused.TRAIN_KERNELS,
                                                     "k2", "k3")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -220,3 +220,112 @@ def test_int8_serving_fn_on_card_matches_cpu(cuda):
         assert conv_fused.launches["int8_basic_block"] == expect
         assert stem_fused.launches["stem_epilogue_pool"] == expect // 8
     torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-4, rtol=0)
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _train_inputs(b, t, h, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, t, 4 * h, generator=g).to(device),
+            (torch.randn(h, 4 * h, generator=g) / h ** 0.5).to(device),
+            torch.tanh(torch.randn(b, h, generator=g)).to(device),
+            torch.randn(b, h, generator=g).to(device))
+
+
+@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (16, 64, 1024)])
+def test_train_kernels_match_plain(cuda, b, t, h):
+    """K1d (y, c_seq, gates) and K1e (d_gates, dh0, dc0) against their plain
+    versions on the same inputs, with launch counts (T and T + 1)."""
+    xp, w, h0, c0 = _train_inputs(b, t, h, cuda)
+    lstm_fused.reset_launches()
+    got = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
+    torch.cuda.synchronize()
+    assert lstm_fused.launches["fwd_train"] == t
+    ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and (a - r).abs().max().item() < ATOL["none"]
+    _, c_seq, gates = ref
+    dy = torch.randn(b, t, h, generator=torch.Generator().manual_seed(1)).to(cuda)
+    c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
+    got = lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w)
+    torch.cuda.synchronize()
+    assert lstm_fused.launches["bwd"] == t + 1
+    ref = lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and torch.isfinite(a).all() and _rel(a, r) < 1e-4
+
+
+def test_recurrence_function_grads_match_plain(cuda, monkeypatch):
+    """The Function's four gradients with the kernels against the same
+    Function with the two plain versions, on the card."""
+    xp, w, h0, c0 = _train_inputs(4, 33, 256, cuda, seed=2)
+    r = torch.randn(4, 33, 256, generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def grads():
+        args = [a.clone().requires_grad_() for a in (xp, w, h0, c0)]
+        (lstm_fused.LSTMRecurrence.apply(*args) * r).sum().backward()
+        return [a.grad for a in args]
+
+    lstm_fused.reset_launches()
+    got = grads()
+    assert lstm_fused.launches["fwd_train"] == 33 and lstm_fused.launches["bwd"] == 34
+    monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
+    monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
+    for a, ref in zip(got, grads()):
+        assert a.dtype == torch.float32 and _rel(a, ref) < 1e-4
+
+
+def test_lstm_layer_fused_keeps_the_graph_on_cuda(cuda):
+    """Under autograd the CUDA path returns a tensor with a grad_fn, and
+    W_hh, x_proj, h0 and c0 receive gradients (the inference kernel's
+    output has none)."""
+    xp, w, h0, c0 = (a.requires_grad_() for a in _train_inputs(2, 5, 64, cuda))
+    y = lstm_fused.lstm_layer_fused(xp, w, h0, c0)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert all(a.grad is not None and a.grad.abs().sum() > 0 for a in (xp, w, h0, c0))
+    with torch.no_grad():
+        assert lstm_fused.lstm_layer_fused(xp, w).grad_fn is None
+
+
+def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
+    """One AV train step (frozen trunk, MCB 128, 2 x LSTM 64, B=2, T=16)
+    with the training kernels against the same step with their plain
+    versions: loss and every trainable gradient."""
+    import copy
+
+    from avvad_tpu_torch.data import Batch
+    from avvad_tpu_torch.models import AVVAD
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(0)
+    lengths = np.array([16, 9])
+    mask = (np.arange(16)[None] < lengths[:, None]).astype(np.float32)
+    batch = Batch(audio=rng.normal(size=(2, 16, 513)).astype(np.float32),
+                  video=rng.normal(size=(2, 16, 67, 67)).astype(np.float32),
+                  label=(rng.random((2, 16, 1)) > 0.5).astype(np.float32),
+                  lengths=lengths, mask=mask)
+    model = AVVAD(lstm_hidden_size=64, lstm_layers=2, mcb_output_size=128,
+                  use_kernel_lstm=True)
+    results = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
+            monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
+        state = create_train_state(copy.deepcopy(model), freeze_video_trunk=True,
+                                   device=cuda)
+        lstm_fused.reset_launches()
+        state, metrics = make_train_step("av")(state, batch)
+        torch.cuda.synchronize()
+        expect = {"fwd_train": 0, "bwd": 0} if plain else {"fwd_train": 32, "bwd": 34}
+        assert {k: lstm_fused.launches[k] for k in expect} == expect
+        assert lstm_fused.launches["none"] == 0
+        results.append((metrics, {n: p.grad for n, p in state.model.named_parameters()
+                                  if p.grad is not None}))
+    (m_k, g_k), (m_p, g_p) = results
+    assert g_k.keys() == g_p.keys() and len(g_k) == 10
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0)
+    for n in g_k:
+        assert _rel(g_k[n], g_p[n]) < 1e-4, n

@@ -82,3 +82,47 @@ def test_lstm_wrapper_rejects_bad_arguments(bad):
         kw["h0"] = torch.zeros(3, 8)
     with pytest.raises(ValueError):
         lstm_layer_fused(**kw)
+
+
+def test_import_guard_covers_the_training_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"avvad_tpu_torch/train/state.py", "avvad_tpu_torch/train/steps.py",
+            "avvad_tpu_torch/train/checkpoint.py", "avvad_tpu_torch/train/trainer.py",
+            "avvad_tpu_torch/data/batching.py",
+            "avvad_tpu_torch/models/losses.py"} <= names
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    """create_train_state (and so every train, eval and predict step, which
+    run on the state's device) needs a card unless given device="cpu"."""
+    from avvad_tpu_torch.data import Batch
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(AudioVAD(lstm_hidden_size=8, lstm_layers=1))
+    state = create_train_state(AudioVAD(lstm_hidden_size=8, lstm_layers=1),
+                               device="cpu")
+    mask = np.ones((1, 3), np.float32)
+    batch = Batch(audio=np.zeros((1, 3, 513), np.float32), video=None,
+                  label=np.ones((1, 3, 1), np.float32), lengths=np.array([3]),
+                  mask=mask)
+    state, metrics = make_train_step("audio")(state, batch)
+    assert state.step == 1 and metrics["loss"].device.type == "cpu"
+    with pytest.raises(ValueError, match="not ported"):
+        make_train_step("video")
+
+
+@pytest.mark.parametrize("state_quant", ["bf16", "int8"])
+def test_quantised_recurrence_refuses_gradients(state_quant):
+    """The quantised-state kernels are inference-only, as in JAX: under
+    autograd the op raises NotImplementedError; without it they run."""
+    from avvad_tpu_torch.ops.lstm_fused import lstm_layer_fused
+
+    xp = torch.zeros(2, 3, 32, requires_grad=True)
+    w = torch.zeros(8, 32)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        lstm_layer_fused(xp, w, state_quant=state_quant)
+    with torch.no_grad():
+        assert lstm_layer_fused(xp, w, state_quant=state_quant).shape == (2, 3, 8)
