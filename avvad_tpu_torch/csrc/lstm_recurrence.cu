@@ -9,6 +9,18 @@
 //       forward of training: lstm_f32h plus two stores per cell, c_t and the
 //       post-activation gates [i, f, g, o], the residuals of the backward in
 //       lstm_train.cu; a compile-time mode, so lstm_f32h's code is unchanged)
+//   lstm_probe  <- the probe kernel of scripts/bench_lstm_probe.py (kernel
+//       :71, _variant_kernel(mode).call :97), which splits a step's cost into
+//       its parts. Four modes behind one entry: "full" (lstm_f32h's
+//       arithmetic and instantiation), "h_bf16" (lstm_bf16h's), "gates_only"
+//       (gates = xp[:, t]: no staging of h, no contraction, no reduction and
+//       no shared memory, all removed at compile time; W is never read) and
+//       "matmul_only" (gates as in "full", then h = the pre-activation i
+//       columns, c untouched: the gate math removed). "matmul_only" uses one
+//       gate's sums only, so the other three are stored to a (B, 4H) scratch
+//       row of the caller's: the compiler must keep all four contractions,
+//       and the mode times the whole (B, H) x (H, 4H) product as the TPU
+//       kernel computes it.
 // Per step:  gates = xp[:, t] + h_{t-1} . W_hh   (gate order [i, f, g, o])
 //            c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c);  y[:, t] = h
 //
@@ -52,7 +64,8 @@ constexpr int JT = 32;  // hidden units per block: one per lane
 constexpr int BT = 8;   // batch rows per block
 constexpr int NW = 8;   // warps per block; they split the contraction
 
-enum Mode { kF32H = 0, kBf16H = 1, kInt8 = 2, kF32HTrain = 3 };
+enum Mode { kF32H = 0, kBf16H = 1, kInt8 = 2, kF32HTrain = 3, kGatesOnly = 4,
+            kMatmulOnly = 5 };
 
 __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
@@ -61,7 +74,8 @@ __device__ __forceinline__ float sigmoid_rn(float x) {
 // One time step. xp / y / h_in point at row 0 of step t (t-1 for h_in);
 // *_row are the strides between batch rows, in elements. kF32HTrain also
 // stores c_t at c_seq (rows of y_row) and the activated gates at g_seq
-// (rows of xp_row); the other modes get null pointers there.
+// (rows of xp_row); kMatmulOnly stores its three unused pre-activations at
+// g_seq as a (B, 4H) scratch; the other modes get null pointers there.
 template <int MODE>
 __global__ void __launch_bounds__(NW * 32)
 lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
@@ -76,6 +90,10 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
   const int j = blockIdx.x * JT + lane;
   const int b0 = blockIdx.y * BT;
   const int H4 = 4 * H;
+
+  typedef typename std::conditional<MODE == kInt8, int, float>::type acc_t;
+  acc_t* red = reinterpret_cast<acc_t*>(smem);
+  if (MODE != kGatesOnly) {  // compile-time: gates_only keeps none of 1-3
 
   // 1. Stage this batch tile's h in shared memory, k-major ([k][bt]).
   if (MODE == kInt8) {
@@ -106,7 +124,6 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
   __syncthreads();
 
   // 2. Partial contraction over this warp's k slice, four gate columns.
-  typedef typename std::conditional<MODE == kInt8, int, float>::type acc_t;
   acc_t acc[BT][4];
 #pragma unroll
   for (int bt = 0; bt < BT; ++bt)
@@ -169,13 +186,14 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
   __syncthreads();  // every warp is done with the staged h
 
   // 3. Reduce the warps' partials through shared memory: red[w][bt][g][lane].
-  acc_t* red = reinterpret_cast<acc_t*>(smem);
 #pragma unroll
   for (int bt = 0; bt < BT; ++bt)
 #pragma unroll
     for (int g = 0; g < 4; ++g)
       red[((warp * BT + bt) * 4 + g) * 32 + lane] = acc[bt][g];
   __syncthreads();
+
+  }  // MODE != kGatesOnly
 
   // 4. Gate math for (bt, lane) pairs; each cell has exactly one owner.
   for (int o = threadIdx.x; o < BT * 32; o += blockDim.x) {
@@ -186,12 +204,25 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
       acc_t s = 0;
-      for (int wi = 0; wi < NW; ++wi) s += red[((wi * BT + bt) * 4 + g) * 32 + l];
+      if (MODE != kGatesOnly)
+        for (int wi = 0; wi < NW; ++wi) s += red[((wi * BT + bt) * 4 + g) * 32 + l];
       const float x = xp[b * xp_row + g * H + jj];
-      if (MODE == kInt8)
+      if (MODE == kGatesOnly)
+        gate[g] = x;
+      else if (MODE == kInt8)
         gate[g] = __fadd_rn(x, __fmul_rn((float)s, ws[g * H + jj]));
       else
         gate[g] = __fadd_rn(x, (float)s);
+    }
+    if (MODE == kMatmulOnly) {
+      // h = gates[:, :H]; c stays. The three other sums go to the scratch
+      // so that their contractions are not dead code.
+      y[b * y_row + jj] = gate[0];
+      float* sink = g_seq + (long long)b * H4 + jj;
+      sink[H] = gate[1];
+      sink[2 * H] = gate[2];
+      sink[3 * H] = gate[3];
+      continue;
     }
     const float ig = sigmoid_rn(gate[0]);
     const float fg = sigmoid_rn(gate[1]);
@@ -218,7 +249,7 @@ int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
               cudaStream_t stream) {
   const size_t stage = MODE == kInt8 ? (size_t)BT * (H / 4) * 4 : (size_t)BT * H * 4;
   const size_t reduce = (size_t)NW * BT * 4 * 32 * 4;
-  const size_t smem = stage > reduce ? stage : reduce;
+  const size_t smem = MODE == kGatesOnly ? 0 : stage > reduce ? stage : reduce;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         lstm_step_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -233,7 +264,9 @@ int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
         xp + (size_t)t * 4 * H, xp_row, w, ws, h_in, h_row, c,
         y + (size_t)t * H, y_row,
         MODE == kF32HTrain ? c_seq + (size_t)t * H : nullptr,
-        MODE == kF32HTrain ? g_seq + (size_t)t * 4 * H : nullptr, B, H);
+        MODE == kF32HTrain ? g_seq + (size_t)t * 4 * H
+                           : MODE == kMatmulOnly ? g_seq : nullptr,
+        B, H);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -273,4 +306,25 @@ extern "C" int lstm_fwd_train_f32h(const float* xp, const void* w, const float* 
                                    int B, int T, int H, void* stream) {
   return run_layer<kF32HTrain>(xp, w, nullptr, h0, c, y, c_seq, gates, B, T, H,
                                (cudaStream_t)stream);
+}
+
+// The probe (scripts/bench_lstm_probe.py): lstm_f32h's arguments, a (B, 4H)
+// f32 scratch that only mode 3 writes, and mode 0 "full", 1 "h_bf16",
+// 2 "gates_only" (w is not read), 3 "matmul_only" (c is not touched).
+extern "C" int lstm_probe(const float* xp, const void* w, const float* h0, float* c,
+                          float* y, float* scratch, int B, int T, int H, int mode,
+                          void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case 0:
+      return run_layer<kF32H>(xp, w, nullptr, h0, c, y, nullptr, nullptr, B, T, H, s);
+    case 1:
+      return run_layer<kBf16H>(xp, w, nullptr, h0, c, y, nullptr, nullptr, B, T, H, s);
+    case 2:
+      return run_layer<kGatesOnly>(xp, w, nullptr, h0, c, y, nullptr, nullptr, B, T, H, s);
+    case 3:
+      return run_layer<kMatmulOnly>(xp, w, nullptr, h0, c, y, nullptr, scratch, B, T, H, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

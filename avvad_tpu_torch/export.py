@@ -1,5 +1,6 @@
 """The raw-input serving step (port of avvad_tpu/export.py:370-445,
-``make_waveform_serving_fn`` for ``AVVAD`` and ``VideoVAD``)."""
+``make_waveform_serving_fn`` for ``AVVAD``, ``AudioVAD`` and
+``VideoVAD``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.vad_nets import AVVAD, VideoVAD
+from .models.vad_nets import AVVAD, AudioVAD, VideoVAD
 from .ops.stft import log_power_frontend
 
 
@@ -22,28 +23,30 @@ def _stat(norm_stats: Optional[dict], device, *keys):
     return None
 
 
-def make_waveform_serving_fn(model: AVVAD | VideoVAD, *,
+def make_waveform_serving_fn(model: AVVAD | AudioVAD | VideoVAD, *,
                              t_frames: Optional[int] = None,
                              fs: int = 16000,
                              wlen_sec: float = 64e-3, hop_percent: float = 0.25,
+                             hop_dft: bool = False,
                              norm_stats: Optional[dict] = None,
                              eps: float = 1e-8, video_frame_indices=None,
                              device: str | torch.device | None = None) -> Callable:
     """AVVAD: -> ``fn(wave (B, n), video (B, T_src, 67, 67)) -> probs
-    (B, T, 1)``, ``t_frames`` required; VideoVAD: -> ``fn(video) -> probs``
-    (the audio options unused).
+    (B, T, 1)``, ``t_frames`` required; AudioVAD: -> ``fn(wave) -> probs``;
+    VideoVAD: -> ``fn(video) -> probs`` (the audio options unused).
 
     The model moves to ``device`` (the card unless ``device="cpu"``) in
     eval mode. ``norm_stats`` with audio_mean/audio_std (or mean/std) and
     video_mean/video_std applies ``(x - mean) / (std + eps)``. The frontend
-    runs with center=False, pad_at_end=True and keeps the first
-    ``t_frames`` frames. ``video_frame_indices`` ((t_frames,) int) gathers
+    runs with center=False, pad_at_end=True (``hop_dft``: on the
+    hop-block DFT route of ``ops.stft``) and keeps the first ``t_frames``
+    frames. ``video_frame_indices`` ((t_frames,) int) gathers
     camera-rate tower features onto the audio timeline.
 
     TF32 stays off for matmuls and cuDNN convolutions: the JAX package pins
     fp32 (Precision.HIGHEST) in the STFT DFT and the MCB matmuls, and its
     float convs run in the model dtype, never in TF32."""
-    if not isinstance(model, (AVVAD, VideoVAD)):
+    if not isinstance(model, (AVVAD, AudioVAD, VideoVAD)):
         raise TypeError(f"unsupported model for serving: {type(model)!r}")
     if isinstance(model, AVVAD) and t_frames is None:
         raise TypeError("AVVAD serving needs t_frames")
@@ -71,15 +74,25 @@ def make_waveform_serving_fn(model: AVVAD | VideoVAD, *,
 
         return video_fn
 
-    @torch.inference_mode()
-    def fn(wave, video):
+    def frontend(wave):
         wave = torch.as_tensor(wave, device=dev)
         feats = log_power_frontend(wave, fs=fs, wlen_sec=wlen_sec,
                                    hop_percent=hop_percent, center=False,
-                                   pad_at_end=True)[:, :t_frames, :]
+                                   pad_at_end=True, hop_dft=hop_dft)[:, :t_frames, :]
         if a_mean is not None:
             feats = (feats - a_mean) / (a_std + eps)
-        return torch.sigmoid(model(feats, norm_video(video),
+        return feats
+
+    if isinstance(model, AudioVAD):
+        @torch.inference_mode()
+        def audio_fn(wave):
+            return torch.sigmoid(model(frontend(wave)))
+
+        return audio_fn
+
+    @torch.inference_mode()
+    def fn(wave, video):
+        return torch.sigmoid(model(frontend(wave), norm_video(video),
                                    video_frame_indices=idx))
 
     return fn

@@ -4,8 +4,9 @@ Weights keep the JAX package's layout: ``w_ih`` (D, 4H), ``w_hh`` (H, 4H)
 and one ``bias`` (4H,), gate order [i, f, g, o]. The input projection of
 all time steps is hoisted into one matmul; the recurrence runs through
 ``ops.lstm_fused.lstm_layer_fused`` (the CUDA kernels on the card) unless
-carries are given or requested, where it is a plain loop, as the JAX
-module falls back to its scan (lstm.py:72). Under autograd that op runs
+carries are given or requested (streaming), where it is a plain loop, as
+the JAX module falls back to its scan (lstm.py:72): the kernels read a
+bf16-rounded W_hh, the scan the weight in the model dtype. Under autograd that op runs
 the training kernels with JAX's custom VJP (``LSTMRecurrence``): W_hh,
 W_ih, the bias and the input all get their gradients.
 """
@@ -60,7 +61,9 @@ class LSTMCellFused(nn.Module):
             cc = torch.zeros_like(hh)
         else:
             hh, cc = h0
-        w_hh = self.w_hh.to(dt)
+        # float32 carries into a bf16 layer promote the product to float32
+        # over the bf16-rounded weight, as JAX's type promotion does
+        w_hh = self.w_hh.to(dt).to(torch.promote_types(dt, hh.dtype))
         ys = []
         for step in range(t):
             gates = x_proj[:, step] + hh @ w_hh

@@ -1,7 +1,8 @@
 """The VAD models (port of avvad_tpu/models/vad_nets.py: AudioVAD,
 _VideoTower, VideoVAD and AVVAD), with the float tower or, for inference,
 the W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and
-static scales).
+static scales). ``AudioVAD`` and ``AVVAD`` have a ``streaming_head`` that
+advances one block with carried LSTM state (``serve.py``).
 
 Children carry the JAX parameter tree's names (``lstm_audio``,
 ``vad_audio``, ``tower.features``, ``mcb``, ``mcb_bn``, ``lstm_merged``,
@@ -92,6 +93,7 @@ class AudioVAD(nn.Module):
         super().__init__()
         _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
+        self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.lstm_audio = LSTMStack(num_audio_features, lstm_hidden_size,
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
@@ -100,6 +102,14 @@ class AudioVAD(nn.Module):
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         return self.vad_audio(self.lstm_audio(audio.float()).float())
+
+    def streaming_head(self, feats: torch.Tensor, carries: list):
+        """One streaming block: features (N, Tc, 513) and per-layer (h, c)
+        carries -> (logits (N, Tc, y_dim), new carries). With carries the
+        recurrence is the plain loop of ``LSTMCellFused``."""
+        out, new_carries = self.lstm_audio(feats.float(), carries=carries,
+                                           return_carries=True)
+        return self.vad_audio(out.float()), new_carries
 
 
 class VideoVAD(nn.Module):
@@ -158,6 +168,7 @@ class AVVAD(nn.Module):
         super().__init__()
         _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
+        self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.use_mcb = use_mcb
         self.eps = eps
         self.tower = _tower(dtype, tower_chunk, g, tower_int8,
@@ -179,10 +190,16 @@ class AVVAD(nn.Module):
         for cell in self.lstm_merged.layers():
             cell.state_quant = state_quant
 
-    def _fuse(self, audio: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def _fuse(self, audio: torch.Tensor, v: torch.Tensor,
+              per_sample_norm: bool = False) -> torch.Tensor:
+        """``per_sample_norm``: the L2 norm over each batch row only, so
+        independent streams batched through one step do not couple (a solo
+        run's "whole tensor" is that one stream)."""
         if not self.use_mcb:
             return torch.cat([audio, v], dim=-1)
-        y = global_l2_normalize(signed_sqrt(self.mcb(audio, v), self.eps))
+        y = signed_sqrt(self.mcb(audio, v), self.eps)
+        y = global_l2_normalize(
+            y, axes=tuple(range(1, y.ndim)) if per_sample_norm else None)
         c = y.shape[-1]
         # two-pass variance: flax's use_fast_variance=False (vad_nets.py:304-310)
         return batch_norm(self.mcb_bn, y.reshape(-1, c),
@@ -199,3 +216,25 @@ class AVVAD(nn.Module):
             v = v.index_select(1, video_frame_indices.to(v.device).long())
         y = self.lstm_merged(self._fuse(audio.float(), v))
         return self.vad_merged(y.float())
+
+    def streaming_head(self, audio_feats: torch.Tensor, video: torch.Tensor,
+                       carries: list, per_stream_norm: bool = False,
+                       video_frame_indices: Optional[torch.Tensor] = None):
+        """One streaming block: normalised audio features (N, Tc, 513) and
+        raw video frames (N, Tc, 67, 67) -> (logits, new carries).
+
+        With ``video_frame_indices`` ((N, Tc) int, per stream) the video
+        holds unique camera-rate frames (N, S, 67, 67) and the tower
+        features are gathered per stream onto the audio timeline (each
+        stream carries its own resample phase). The MCB path's L2 norm is
+        taken per block, not per utterance; ``per_stream_norm`` takes it
+        per batch row, as N > 1 independent streams need. Call in eval
+        mode: the BatchNorms use their running statistics."""
+        v = self.tower(video)
+        if video_frame_indices is not None:
+            idx = video_frame_indices.to(v.device).long()
+            v = torch.take_along_dim(v, idx[:, :, None], dim=1)
+        y = self._fuse(audio_feats.float(), v, per_sample_norm=per_stream_norm)
+        out, new_carries = self.lstm_merged(y, carries=carries,
+                                            return_carries=True)
+        return self.vad_merged(out.float()), new_carries

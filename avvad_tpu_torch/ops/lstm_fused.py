@@ -18,6 +18,7 @@ variant      kernel                   replaces (avvad_tpu/ops/lstm_pallas.py)
 "int8"       ``lstm_int8``            ``_lstm_kernel_int8`` via ``_fwd_quant_call``
 "fwd_train"  ``lstm_fwd_train_f32h``  ``_lstm_fwd_train_kernel`` via ``_fwd_train_call``
 "bwd"        ``lstm_bwd_f32h``        ``_lstm_bwd_kernel`` via ``_bwd_call``
+"probe"      ``lstm_probe``           the probe kernel of scripts/bench_lstm_probe.py:71
 ===========  =======================  ======================================
 
 Under autograd (grad enabled and an input that requires it)
@@ -26,6 +27,10 @@ Under autograd (grad enabled and an input that requires it)
 backward the "bwd" kernel, with dW_hh as one fp32 matmul outside, as
 JAX's custom VJP computes it. Layouts are batch-major (B, T, ...)
 throughout; the JAX kernels take time-major arrays.
+
+``lstm_probe`` is the measuring tool's kernel (``tools/lstm_probe.py``):
+the recurrence in four modes that take a step's cost apart ("full",
+"h_bf16", "gates_only", "matmul_only"; ``PROBE_MODES``).
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ from .qparams import weight_qparams
 
 STATE_QUANTS = ("none", "bf16", "int8")
 TRAIN_KERNELS = ("fwd_train", "bwd")
+PROBE_MODES = ("full", "h_bf16", "gates_only", "matmul_only")  # the C entry's codes
 KERNEL_NAMES = {"none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
-                "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h"}
+                "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
+                "probe": "lstm_probe"}
 
 # Kernel launches per variant, counted by the CUDA wrappers only.
 launches = {k: 0 for k in KERNEL_NAMES}
@@ -295,6 +302,78 @@ def lstm_bwd(dy: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
          dh0.data_ptr(), dc.data_ptr(), b, t, h)
     launches["bwd"] += t + 1
     return d_gates, dh0, dc
+
+
+def _check_probe_args(x_proj, w_hh, h0, c0, mode):
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
+    _check_args(x_proj, w_hh, h0, c0, "none")
+
+
+def lstm_probe_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                     h0: torch.Tensor | None = None,
+                     c0: torch.Tensor | None = None,
+                     mode: str = "full") -> torch.Tensor:
+    """Plain version of ``lstm_probe`` (scripts/bench_lstm_probe.py:71-95),
+    batch-major: x_proj (B, T, 4H) -> y (B, T, H) float32, W_hh rounded to
+    bf16. "full": gates = xp + h fp32 . W; "h_bf16": h rounded to bf16 for
+    the dot; "gates_only": gates = xp, no product; "matmul_only": gates as
+    in "full", then h = gates[:, :H] (the pre-activation i columns) and c
+    unchanged."""
+    _check_probe_args(x_proj, w_hh, h0, c0, mode)
+    if mode == "full":
+        return lstm_layer_plain(x_proj, w_hh, h0, c0, "none")
+    if mode == "h_bf16":
+        return lstm_layer_plain(x_proj, w_hh, h0, c0, "bf16")
+    xp = x_proj.float()
+    hh, cc = _initial_state(xp, h0, c0)
+    if mode == "gates_only":
+        return _scan(xp, lambda hv: 0.0, hh, cc, residuals=False)
+    wd = _bf16_rounded(w_hh)
+    h = wd.shape[0]
+    y = xp.new_empty(xp.shape[0], xp.shape[1], h)
+    for step in range(xp.shape[1]):
+        hh = (xp[:, step] + hh @ wd)[:, :h]
+        y[:, step] = hh
+    return y
+
+
+def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
+               h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
+               mode: str = "full") -> torch.Tensor:
+    """The probe kernel: one layer's recurrence in one of ``PROBE_MODES``
+    -> y (B, T, H), as ``lstm_probe_plain``. Batch-major like the other
+    wrappers here (the TPU kernel is time-major). A CUDA ``x_proj``
+    launches ``lstm_probe`` T times, counted under ``launches["probe"]``
+    whatever the mode, or raises; a CPU one runs the plain version. Not
+    for autograd."""
+    _check_probe_args(x_proj, w_hh, h0, c0, mode)
+    if not x_proj.is_cuda:
+        return lstm_probe_plain(x_proj, w_hh, h0, c0, mode)
+    from ._build import kernel_lib
+
+    dev = x_proj.device
+    b, t, h4 = x_proj.shape
+    h = h4 // 4
+    _on_device("x_proj", x_proj, dev)
+    _require(w_hh.device == dev, "w_hh must lie on x_proj's device")
+    h0 = torch.zeros(b, h, device=dev) if h0 is None else h0
+    c = (torch.zeros(b, h, device=dev) if c0 is None
+         else c0.to(torch.float32).clone())  # updated in place by the kernel
+    _on_device("h0", h0, dev)
+    _on_device("c0", c, dev)
+    y = torch.empty(b, t, h, device=dev)
+    if t == 0 or b == 0:
+        return y
+    w = w_hh.to(torch.bfloat16).contiguous()
+    # "matmul_only" parks the three gate sums it does not use here, so that
+    # the whole (B, H) x (H, 4H) product stays in the kernel
+    scratch = torch.empty(b, h4, device=dev)
+    _run("probe", dev, kernel_lib().lstm_probe, x_proj.data_ptr(), w.data_ptr(),
+         h0.data_ptr(), c.data_ptr(), y.data_ptr(), scratch.data_ptr(), b, t, h,
+         PROBE_MODES.index(mode))
+    launches["probe"] += t
+    return y
 
 
 class LSTMRecurrence(torch.autograd.Function):

@@ -46,7 +46,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the AV model with a checkpoint round trip into a temporary directory
    under build/: the restored state equals the saved one, and one more
    step from each agrees;
-10. one {"kernels": [...]} line, then the ok line with the device.
+10. the probe kernel (P1) in its four modes against its plain version at
+    the probe's shape (B=64, T=512, H=1024) and the ragged one, on the
+    probe's own draws (x_proj x 0.1, W_hh x 0.02); CUDA-event times of the
+    kernel, the plain version and, for "full" and "h_bf16", one cuDNN
+    torch.nn.LSTM layer; bounds from the shapes;
+11. the probe tool's main() in-process at its default shape, with launch
+    counters read around it: its lines, and one {"probe_tool": ...} line;
+12. the hop-block and split-radix DFT routes against the direct one at the
+    serving shape (B=64, T=512), and the three frontends' times;
+13. streaming at full width, 32 streams x 16 frames a tick, 40 ticks:
+    MultiStreamVAD (AudioVAD, 2 x LSTM 1024) on the frames wire and on the
+    int16 span wire with the hop-block DFT; MultiStreamAVVAD (30 fps uint8
+    camera frames, int16 span wire) with the bf16 float tower and with the
+    calibrated static-int8 tower (K3 once and K2 eight times a tick, launch
+    counters read around a tick). Probabilities checked; streams 0 and 1
+    against a solo StreamingVAD / StreamingAVVAD fed the same data; the
+    int8-tower ticks against the same ticks with the plain K2/K3;
+    tick_pipelined one tick late against the synchronous run; a stream
+    reset with a tick pending delivers nothing of the old stream; ms/tick,
+    x real time, peak memory, the LSTM loop's share, the device's idle
+    share of one step under torch.profiler, one {"streaming": ...} line
+    each;
+14. one {"kernels": [...]} line (11 rows), then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -127,6 +149,28 @@ TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end")
                 ("backward_start", "optimizer_start"): "backward",
                 ("optimizer_start", "optimizer_end"): "optimizer",
                 ("optimizer_end", "end"): "metrics"}
+# the probe kernel against its plain version (KERNEL_TOL's reasons: "full",
+# "matmul_only" and "gates_only" are fp32 in another summation order or with
+# expf/tanhf; "h_bf16" adds the rare h that crosses a bf16 rounding boundary)
+PROBE_TOL = {"full": 1e-4, "gates_only": 1e-4, "matmul_only": 1e-4, "h_bf16": 2e-3}
+PROBE_SQ = {"full": "none", "matmul_only": "none", "h_bf16": "bf16"}
+# re / im of the other DFT routes against the direct one, as a share of the
+# largest value (tests/test_ops_stft.py:108 and :138)
+ROUTE_TOL = {"hop_dft": 1e-5, "split_radix": 1e-4}
+# streaming: the shape of scripts/bench_streaming.py
+STREAMS, BLOCK, TICKS = 32, 16, 40
+SOLO_TICKS = 8
+# rows of the batched tick against a solo streamer on the same card. fp32
+# AudioVAD: cuBLAS may pick another kernel for 32 rows than for one, and the
+# solo streamer runs the direct DFT where the span wire runs the hop-block
+# one. bf16 AVVAD: cuDNN may pick its bf16 kernels by batch (288 unique
+# frames against 16 duplicated ones), which would move tower features by
+# bf16 roundings. H100 80GB HBM3 (700 W) readings: 1.8e-7 (audio), 5.5e-6
+# (float tower) and 2.9e-6 (int8 tower)
+SOLO_TOL = {"audio": 1e-5, "av": 5e-4}
+# the pipelined run against the synchronous one: the same operations at the
+# same shapes on the same card
+PIPE_TOL = 1e-6
 BUILD = Path(__file__).resolve().parent / "build"
 
 
@@ -451,6 +495,7 @@ def main_path(lstm_fused, rows):
             raise RuntimeError(f"{sq}: serving step vs plain LSTM {err}")
         time_step(fn, model, wave, video, sq, f"launches {counts[sq]}, "
                   f"max|probs-plain| {err:.2e} (tol {PROB_TOL:g})")
+    return model
 
 
 def int8_path(rows):
@@ -517,6 +562,7 @@ def int8_path(rows):
           f"rel {rel:.5f} (bar {FEAT_REL}), corr {corr:.6f} (bar {FEAT_CORR})")
     if not (rel < FEAT_REL and corr > FEAT_CORR):
         raise RuntimeError(f"int8 tower features: rel {rel}, corr {corr}")
+    return model
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -803,6 +849,334 @@ def trainer_phase(state) -> None:
         raise RuntimeError(f"resumed step differs: {err}")
 
 
+def probe_bound(b: int, t: int, h: int, mode: str) -> tuple[float, str]:
+    """Least time of one probe layer. "full", "matmul_only" and "h_bf16" do
+    K1a's / K1c's work (bound()); "gates_only" reads x_proj and c0 and
+    writes y and c once, and does some 30 fp32 operations a cell."""
+    if mode != "gates_only":
+        return bound(b, t, h, PROBE_SQ[mode])
+    nbytes = 4 * (b * t * 4 * h + b * t * h + 2 * b * h)
+    t_ops, t_bytes = 30.0 * b * t * h / PEAK["none"], nbytes / MEM_BW
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_kernel_phase(lstm_fused, tool) -> dict:
+    """P1's four modes against the plain version at the probe's shape and
+    the ragged one, with times and bounds -> kernel rows "probe/<mode>"."""
+    dev = torch.device("cuda")
+    lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
+    x_in = torch.randn(B, T, H, generator=torch.Generator().manual_seed(9)).cuda()
+    with torch.inference_mode():
+        cudnn_ms = cuda_ms(lambda: lstm(x_in), 5)
+    rows = {}
+    for mode in lstm_fused.PROBE_MODES:
+        errs = []
+        for b, t, h in ((B, T, H), RAGGED):
+            xp, w, _, _ = tool.probe_inputs(b, t, h, dev, seed=3)
+            g = torch.Generator().manual_seed(4)
+            h0 = torch.tanh(torch.randn(b, h, generator=g)).cuda()
+            c0 = torch.randn(b, h, generator=g).cuda()
+            y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
+            torch.cuda.synchronize()
+            ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
+            err = (y - ref).abs().max().item()
+            print(f"lstm_probe[{mode}] B={b} T={t} H={h}: max|kernel-plain| = {err:.3e} "
+                  f"(tol {PROBE_TOL[mode]:g}; max|plain| {ref.abs().max().item():.3f})")
+            if not (torch.isfinite(y).all() and err <= PROBE_TOL[mode]):
+                raise RuntimeError(f"probe {mode}: kernel disagrees with plain ({err})")
+            errs.append(err)
+        xp, w, h0, c0 = tool.probe_inputs(B, T, H, dev)
+        ms = cuda_ms(lambda: lstm_fused.lstm_probe(xp, w, h0, c0, mode), 5)
+        plain_ms = cuda_ms(lambda: lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode), 2)
+        library_ms = cudnn_ms if mode in ("full", "h_bf16") else None
+        bound_ms, bound_by = probe_bound(B, T, H, mode)
+        print(f"lstm_probe[{mode}]: kernel {ms:.3f} ms/layer ({1e3 * ms / T:.2f} us/step), "
+              f"plain {plain_ms:.3f}, cuDNN LSTM layer "
+              f"{'none' if library_ms is None else f'{library_ms:.3f}'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        rows[f"probe/{mode}"] = {
+            "name": f"lstm_probe[{mode}]", "route": "cuda",
+            "source": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+            "replaces": "scripts/bench_lstm_probe.py:71", "launches": None,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    full, mm, go = (rows[f"probe/{m}"]["ms"] for m in ("full", "matmul_only", "gates_only"))
+    print(f"lstm_probe split of a full step ({1e3 * full / T:.2f} us): matmul_only "
+          f"{mm / full:.3f} of full, gates_only {go / full:.3f} of full")
+    # a quarter of the product would be dead-code elimination of three gates
+    if mm < 0.5 * full:
+        raise RuntimeError(f"matmul_only {mm:.3f} ms is under half of full {full:.3f} ms: "
+                           "the contraction was cut")
+    return rows
+
+
+def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
+    """The probe entry point, as a user runs it, with launch counters."""
+    iters = 30
+    lstm_fused.reset_launches()
+    res = tool.main([])
+    torch.cuda.synchronize()
+    counts = dict(lstm_fused.launches)
+    # each timing is a warm-up and `iters` calls; "full" and "h_bf16" are
+    # run once more each for their difference
+    expect = {k: 0 for k in counts}
+    expect.update(probe=T * (4 * (iters + 1) + 2),
+                  **{sq: T * (iters + 1) for sq in lstm_fused.STATE_QUANTS})
+    if counts != expect:
+        raise RuntimeError(f"probe tool: launch counts {counts}, expected {expect}")
+    for mode, n in res["probe_launches"].items():
+        if n < T:
+            raise RuntimeError(f"probe tool: mode {mode} launched {n} times")
+        rows[f"probe/{mode}"]["launches"] = n
+    times = [*res["probe"].values(), *res["lstm_layer_fused"].values(),
+             *res["frontend"].values()]
+    if not all(np.isfinite(v) and v > 0 for v in times) or \
+            not 0 <= res["h_bf16_vs_full"] < 1e-2:
+        raise RuntimeError(f"probe tool: bad result {res}")
+    print(json.dumps({"probe_tool": res, "launches": counts}))
+
+
+def frontend_phase() -> None:
+    """hop_dft and split_radix against the direct DFT at the serving shape,
+    then the three log-power frontends' times."""
+    from avvad_tpu_torch.ops.stft import log_power_frontend, stft_frames
+
+    rng = np.random.default_rng(1)
+    wave = torch.from_numpy(rng.standard_normal((B, N_SAMPLES), np.float32) * 0.3).cuda()
+    direct = stft_frames(wave)
+    errs = {}
+    for route, tol in ROUTE_TOL.items():
+        got = stft_frames(wave, **{route: True})
+        errs[route] = max(rel_err(g, d) for g, d in zip(got, direct))
+        if got[0].shape != (B, T, 513) or not errs[route] < tol:
+            raise RuntimeError(f"frontend {route}: {tuple(got[0].shape)}, rel {errs[route]}")
+    ms = {route: cuda_ms(lambda: log_power_frontend(wave, **kw), 10)
+          for route, kw in (("direct", {}), ("hop_dft", {"hop_dft": True}),
+                            ("split_radix", {"split_radix": True}))}
+    print(f"frontend B={B} T={T}: re/im against direct, share of the largest value: "
+          + ", ".join(f"{r} {e:.2e} (tol {ROUTE_TOL[r]:g})" for r, e in errs.items())
+          + "; log-power ms: " + ", ".join(f"{r} {v:.3f}" for r, v in ms.items()))
+
+
+def stream_data(seed: int = 0):
+    """Seeded traffic of STREAMS real-time streams over TICKS ticks: int16
+    PCM (a block of frames a tick) and 30 fps uint8 lip frames, cut so
+    that every tick completes exactly one block of both modalities ->
+    (pcm chunks per tick (STREAMS, n), video chunks per tick
+    (STREAMS, k, 67, 67), the same video at 62.5 fps (STREAMS, T, 67, 67))."""
+    from avvad_tpu_torch.processing import fps_block_schedule, fps_resample_indices
+
+    rng = np.random.default_rng(seed)
+    n0 = 1024 - HOP
+    pcm = (rng.standard_normal((STREAMS, n0 + TICKS * BLOCK * HOP)) * 6000).astype(np.int16)
+    cuts = [0] + [n0 + (k + 1) * BLOCK * HOP for k in range(TICKS)]
+    need = [0]
+    for k in range(TICKS):
+        lo, rel = fps_block_schedule(k * BLOCK, BLOCK, 30.0, FRAME_RATE)
+        need.append(lo + int(rel[-1]) + 1)
+    src = rng.integers(0, 256, (STREAMS, need[-1], 67, 67), dtype=np.uint8)
+    up = src[:, fps_resample_indices(need[-1], 30.0, FRAME_RATE)[:TICKS * BLOCK]]
+    return ([pcm[:, a:b] for a, b in zip(cuts, cuts[1:])],
+            [src[:, a:b] for a, b in zip(need, need[1:])], up)
+
+
+def feed_tick(ms, pcm, video, float_wire: bool) -> None:
+    for i in range(STREAMS):
+        chunk = pcm[i].astype(np.float32) / 32768.0 if float_wire else pcm[i]
+        if video is None:
+            ms.feed(i, chunk)
+        else:
+            ms.feed(i, pcm=chunk, video_frames=video[i])
+
+
+def check_tick(out: dict, label: str) -> None:
+    if sorted(out) != list(range(STREAMS)):
+        raise RuntimeError(f"{label}: streams {sorted(out)} produced output")
+    probs = np.stack([out[i] for i in range(STREAMS)])
+    if probs.shape != (STREAMS, BLOCK) or not np.isfinite(probs).all() \
+            or probs.min() < 0 or probs.max() > 1:
+        raise RuntimeError(f"{label}: bad probabilities {probs.shape}")
+
+
+def run_streamer(ms, lstm, pcm, video, float_wire: bool, label: str):
+    """warmup(), then TICKS ticks of feed + tick() -> (per-tick outputs,
+    a summary). CUDA events at the LSTM stack's edges give the carried-state
+    loop's device time inside each tick."""
+    ms.warmup()
+    marks, outs, ticks = [], [], []
+    hooks = [lstm.register_forward_pre_hook(lambda *_: _mark(marks)),
+             lstm.register_forward_hook(lambda *_: _mark(marks))]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in range(TICKS):
+            marks.clear()
+            t0 = time.perf_counter()
+            feed_tick(ms, pcm[k], None if video is None else video[k], float_wire)
+            t1 = time.perf_counter()
+            out = ms.tick()  # fetches: ends with the device's work done
+            t2 = time.perf_counter()
+            check_tick(out, f"{label} tick {k}")
+            outs.append(out)
+            ticks.append((t2 - t0, t1 - t0, marks[0][1].elapsed_time(marks[1][1])))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    best = min(ticks, key=lambda r: r[0])
+    med = float(np.median([r[0] for r in ticks]))
+    audio_s = STREAMS * BLOCK / FRAME_RATE
+    summary = {"streaming": label, "streams": STREAMS, "block_frames": BLOCK,
+               "ticks": TICKS, "ms_per_tick_best": 1e3 * best[0],
+               "ms_per_tick_median": 1e3 * med, "feed_ms_of_best": 1e3 * best[1],
+               "x_real_time_best": audio_s / best[0], "x_real_time_median": audio_s / med,
+               "lstm_loop_ms_of_best": best[2], "lstm_loop_share_of_best": best[2] / (1e3 * best[0]),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    # the device step alone (warmup() runs it on zeros and synchronises)
+    # under the profiler: how much of it the device is busy
+    prof = profile_step(ms.warmup)
+    summary.update(step_wall_ms=prof["profiled_step_wall_ms"],
+                   step_device_busy_ms=prof["device_busy_ms"],
+                   step_device_idle_share=prof["device_idle_share"],
+                   step_top_kernels=prof["top_kernels"][:4])
+    print(f"streaming {label}: {summary['ms_per_tick_best']:.2f} ms/tick best, "
+          f"{summary['ms_per_tick_median']:.2f} median (feed {summary['feed_ms_of_best']:.2f}), "
+          f"{summary['x_real_time_best']:.0f}x real time, LSTM loop "
+          f"{best[2]:.2f} ms = {summary['lstm_loop_share_of_best']:.2f} of the tick, peak mem "
+          f"{summary['peak_mem_gib']:.2f} GiB; the step alone under the profiler: "
+          f"{prof['profiled_step_wall_ms']:.2f} ms, device busy {prof['device_busy_ms']:.2f} ms "
+          f"(idle share {prof['device_idle_share']:.2f})")
+    return outs, summary
+
+
+def solo_check(solo, outs, pcm, up, kind: str, label: str) -> float:
+    """Streams 0 and 1 of the batched run against a solo streamer fed the
+    same samples (and the same frames at 62.5 fps) -> largest difference."""
+    worst = 0.0
+    for i in (0, 1):
+        solo.reset()
+        for k in range(SOLO_TICKS):
+            chunk = pcm[k][i].astype(np.float32)  # int-domain values and peak
+            got = (solo.feed(chunk) if up is None
+                   else solo.feed(chunk, up[i, k * BLOCK:(k + 1) * BLOCK]))
+            if got.shape != (BLOCK,):
+                raise RuntimeError(f"{label}: solo stream {i} tick {k} gave {got.shape}")
+            worst = max(worst, float(np.abs(got - outs[k][i]).max()))
+    print(f"streaming {label}: streams 0 and 1 against solo over {SOLO_TICKS} ticks: "
+          f"max |diff| {worst:.2e} (tol {SOLO_TOL[kind]:g})")
+    if worst > SOLO_TOL[kind]:
+        raise RuntimeError(f"{label}: multi-stream against solo {worst}")
+    return worst
+
+
+def pipeline_check(make, outs, pcm, video, label: str) -> float:
+    """tick_pipelined hands out tick n-1's result at tick n and equals the
+    synchronous run; a slot recycled with a tick pending delivers nothing."""
+    ms = make()
+    worst, n = 0.0, 6
+    for k in range(n):
+        feed_tick(ms, pcm[k], None if video is None else video[k], False)
+        got = ms.tick_pipelined()
+        if k == 0:
+            if got != {}:
+                raise RuntimeError(f"{label}: first pipelined tick returned {sorted(got)}")
+            continue
+        check_tick(got, f"{label} pipelined tick {k}")
+        worst = max(worst, max(float(np.abs(got[i] - outs[k - 1][i]).max())
+                               for i in range(STREAMS)))
+    if ms.pending_streams() != set(range(STREAMS)):
+        raise RuntimeError(f"{label}: pending {sorted(ms.pending_streams())}")
+    ms.reset_stream(3)
+    tail = ms.flush_pipelined()
+    if sorted(tail) != [i for i in range(STREAMS) if i != 3]:
+        raise RuntimeError(f"{label}: a recycled slot delivered: {sorted(tail)}")
+    worst = max(worst, max(float(np.abs(tail[i] - outs[n - 1][i]).max()) for i in tail))
+    print(f"streaming {label}: tick_pipelined one tick late against the synchronous run "
+          f"over {n} ticks: max |diff| {worst:.2e} (tol {PIPE_TOL:g}); reset_stream(3) "
+          f"with a tick pending delivered {len(tail)} streams, none of slot 3")
+    if worst > PIPE_TOL:
+        raise RuntimeError(f"{label}: pipelined against synchronous {worst}")
+    return worst
+
+
+def streaming_phase(float_model, int8_model) -> None:
+    import avvad_tpu_torch.models.resnet as resnet_mod
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+
+    pcm, video, up = stream_data()
+    span = dict(span_wire=True, hop_dft=True, audio_int16=True)
+    print(f"streaming: {STREAMS} streams x {BLOCK} frames a tick "
+          f"({STREAMS * BLOCK / FRAME_RATE:.3f} s of audio), {TICKS} ticks; "
+          f"{sum(v.shape[1] for v in video)} camera frames a stream")
+
+    audio = AudioVAD(lstm_hidden_size=H, lstm_layers=2, seed=0)
+    for label, kw, float_wire in (("audio/frames", {}, True), ("audio/span_int16_hop_dft", span, False)):
+        ms = serve.MultiStreamVAD(audio, STREAMS, block_frames=BLOCK, **kw)
+        outs, summary = run_streamer(ms, ms.model.lstm_audio, pcm, None, float_wire, label)
+        if not float_wire:
+            summary["solo_max_abs_diff"] = solo_check(
+                serve.StreamingVAD(audio, block_frames=BLOCK), outs, pcm, None, "audio", label)
+            summary["pipelined_max_abs_diff"] = pipeline_check(
+                lambda: serve.MultiStreamVAD(audio, STREAMS, block_frames=BLOCK, **span),
+                outs, pcm, None, label)
+        print(json.dumps(summary))
+    del audio, ms
+    torch.cuda.empty_cache()
+
+    def av_server(model):
+        return serve.MultiStreamAVVAD(model, STREAMS, block_frames=BLOCK, video_fps=30.0,
+                                      video_uint8=True, **span)
+
+    for label, model in (("av/float_tower", float_model), ("av/int8_tower", int8_model)):
+        ms = av_server(model)
+        outs, summary = run_streamer(ms, ms.model.lstm_merged, pcm, video, False, label)
+        summary["solo_max_abs_diff"] = solo_check(
+            serve.StreamingAVVAD(model, block_frames=BLOCK, video_uint8=True),
+            outs, pcm, up, "av", label)
+        summary["pipelined_max_abs_diff"] = pipeline_check(
+            lambda: av_server(model), outs, pcm, video, label)
+        if label == "av/int8_tower":
+            # one tick with the counters at 0 before and read after, then the
+            # same ticks with the plain K2 / K3
+            ms = av_server(model)
+            worst, block_kernel = 0.0, conv_fused.basic_block_int8
+            for k in range(3):
+                feed_tick(ms, pcm[k], video[k], False)
+                for mod in (lstm_fused, conv_fused, stem_fused):
+                    mod.reset_launches()
+                got = ms.tick()
+                counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+                expect = {k_: 0 for k_ in counts}
+                expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1})
+                if counts != expect:
+                    raise RuntimeError(f"{label}: tick launch counts {counts}, expected {expect}")
+                worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
+                                       for i in range(STREAMS)))
+            if worst > PIPE_TOL:
+                raise RuntimeError(f"{label}: a second run differs by {worst}")
+            ref = av_server(model)
+            resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
+            conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
+            try:
+                worst = 0.0
+                for k in range(3):
+                    feed_tick(ref, pcm[k], video[k], False)
+                    got = ref.tick()
+                    worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
+                                           for i in range(STREAMS)))
+            finally:
+                resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
+                conv_fused.basic_block_int8 = block_kernel
+            print(f"streaming {label}: launches a tick {conv_fused.KERNEL_NAME} 8, "
+                  f"{stem_fused.KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
+                  f"{worst:.2e} (tol {INT8_PROB_TOL:g})")
+            if worst > INT8_PROB_TOL:
+                raise RuntimeError(f"{label}: ticks against plain K2/K3 {worst}")
+            summary.update(k2_launches_per_tick=8, k3_launches_per_tick=1,
+                           plain_k2_k3_max_abs_diff=worst)
+        print(json.dumps(summary))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -810,6 +1184,7 @@ def main() -> None:
     print(f"card: {card}")
     from avvad_tpu_torch.ops import _build, lstm_fused
     from avvad_tpu_torch.processing import unique_frame_schedule
+    from avvad_tpu_torch.tools import lstm_probe as probe_tool
 
     info = _build.build(force=True)
     print(f"built {info['path']} in {info['seconds']:.1f} s")
@@ -819,9 +1194,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(lstm_fused)
     rows.update(int8_kernel_phase(B * unique_frame_schedule(T)[0]))
-    main_path(lstm_fused, rows)
+    float_model = main_path(lstm_fused, rows)
     torch.cuda.empty_cache()
-    int8_path(rows)
+    int8_model = int8_path(rows)
     torch.cuda.empty_cache()
     rows.update(train_kernel_phase(lstm_fused))
     state = train_path(rows, "av")
@@ -829,9 +1204,15 @@ def main() -> None:
     train_path(rows, "audio")
     torch.cuda.empty_cache()
     trainer_phase(state)
-    print(json.dumps({"kernels": [rows[k] for k in (*lstm_fused.STATE_QUANTS,
-                                                    *lstm_fused.TRAIN_KERNELS,
-                                                    "k2", "k3")]}))
+    del state
+    torch.cuda.empty_cache()
+    rows.update(probe_kernel_phase(lstm_fused, probe_tool))
+    probe_tool_phase(lstm_fused, probe_tool, rows)
+    frontend_phase()
+    streaming_phase(float_model, int8_model)
+    print(json.dumps({"kernels": [rows[k] for k in (
+        *lstm_fused.STATE_QUANTS, *lstm_fused.TRAIN_KERNELS, "k2", "k3",
+        *(f"probe/{m}" for m in lstm_fused.PROBE_MODES))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

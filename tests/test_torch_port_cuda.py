@@ -329,3 +329,90 @@ def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
     torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0)
     for n in g_k:
         assert _rel(g_k[n], g_p[n]) < 1e-4, n
+
+
+# the probe kernel against its plain version: "full" and "matmul_only" are
+# fp32 in another summation order, "gates_only" differs by expf/tanhf only,
+# "h_bf16" adds the rare h that crosses a bf16 rounding boundary
+PROBE_ATOL = {"full": 1e-4, "gates_only": 1e-4, "matmul_only": 1e-4, "h_bf16": 2e-3}
+
+
+@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024)])
+@pytest.mark.parametrize("mode", lstm_fused.PROBE_MODES)
+def test_probe_kernel_matches_plain(cuda, mode, b, t, h):
+    """The probe's own draws (x_proj x 0.1, W x 0.02: "matmul_only" is a
+    linear recurrence that a wider W lets diverge), non-zero h0 and c0."""
+    rng = np.random.default_rng(0)
+    xp = torch.from_numpy(rng.normal(size=(b, t, 4 * h)).astype(np.float32) * 0.1).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(h, 4 * h)).astype(np.float32) * 0.02).to(cuda)
+    h0 = torch.from_numpy(np.tanh(rng.normal(size=(b, h))).astype(np.float32)).to(cuda)
+    c0 = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda)
+    c0_before = c0.clone()
+    lstm_fused.reset_launches()
+    y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
+    torch.cuda.synchronize()
+    assert lstm_fused.launches["probe"] == t
+    assert sum(lstm_fused.launches.values()) == t  # counted under the probe only
+    assert torch.equal(c0, c0_before)  # the kernel advances a copy
+    ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
+    assert y.shape == (b, t, h) and torch.isfinite(y).all()
+    assert (y - ref).abs().max().item() < PROBE_ATOL[mode]
+    if mode == "gates_only":  # W is never read
+        y2 = lstm_fused.lstm_probe(xp, torch.full_like(w, float("nan")), h0, c0, mode)
+        assert torch.equal(y, y2)
+
+
+def test_probe_kernel_raises_on_wrong_device_or_dtype(cuda):
+    xp = torch.zeros(2, 3, 32, device=cuda)
+    with pytest.raises(ValueError):
+        lstm_fused.lstm_probe(xp, torch.zeros(8, 32), mode="full")  # W on the CPU
+    with pytest.raises(ValueError):
+        lstm_fused.lstm_probe(xp.half(), torch.zeros(8, 32, device=cuda), mode="full")
+
+
+@pytest.mark.parametrize("route", ["hop_dft", "split_radix"])
+def test_dft_routes_match_direct_on_card(cuda, route):
+    from avvad_tpu_torch.ops.stft import stft_frames
+
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(4, 256 * 63 + 1024))
+                         .astype(np.float32) * 0.3).to(cuda)
+    tol = {"hop_dft": 1e-5, "split_radix": 1e-4}[route]
+    for got, want in zip(stft_frames(x, **{route: True}), stft_frames(x)):
+        assert got.shape == want.shape == (4, 64, 513)
+        assert ((got - want).abs().max() / want.abs().max()).item() < tol
+
+
+@pytest.mark.parametrize("kind", ["audio", "av"])
+def test_streaming_ticks_on_card_match_cpu(cuda, kind):
+    """A multi-stream server on the card (pinned staging uploads, the
+    pipelined tick with its side-stream download) against the same server
+    on the CPU: fp32 on both; cuDNN and CPU convs and DFTs reassociate."""
+    import copy
+
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import AVVAD, AudioVAD
+
+    rng = np.random.default_rng(0)
+    pcm = [(rng.normal(size=1024 + 256 * 23) * 8000).astype(np.int16) for _ in range(2)]
+    vid = [np.round(rng.random((12, 67, 67)) * 255).astype(np.float32) for _ in range(2)]
+    model = (AVVAD(lstm_hidden_size=64, lstm_layers=2, mcb_output_size=128)
+             if kind == "av" else AudioVAD(lstm_hidden_size=64, lstm_layers=2))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(block_frames=8, span_wire=True, hop_dft=True, audio_int16=True,
+                  device=dev)
+        if kind == "av":
+            ms = serve.MultiStreamAVVAD(copy.deepcopy(model), 2, video_fps=30.0,
+                                        video_uint8=True, **kw)
+            for i in range(2):
+                ms.feed(i, pcm=pcm[i], video_frames=vid[i])
+        else:
+            ms = serve.MultiStreamVAD(copy.deepcopy(model), 2, **kw)
+            for i in range(2):
+                ms.feed(i, pcm[i])
+        ms.warmup()
+        ticks = [ms.tick_pipelined() for _ in range(3)] + [ms.flush_pipelined()]
+        assert ticks[0] == {} and all(set(t) == {0, 1} for t in ticks[1:])
+        outs[dev] = np.concatenate([np.stack([t[0], t[1]]) for t in ticks[1:]], axis=1)
+    assert outs["cuda"].shape == (2, 24)
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)

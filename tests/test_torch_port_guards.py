@@ -126,3 +126,60 @@ def test_quantised_recurrence_refuses_gradients(state_quant):
         lstm_layer_fused(xp, w, state_quant=state_quant)
     with torch.no_grad():
         assert lstm_layer_fused(xp, w, state_quant=state_quant).shape == (2, 3, 8)
+
+
+def test_import_guard_covers_the_streaming_and_probe_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"avvad_tpu_torch/serve.py", "avvad_tpu_torch/native.py",
+            "avvad_tpu_torch/config.py",
+            "avvad_tpu_torch/tools/lstm_probe.py"} <= names
+
+
+@pytest.mark.parametrize("streamer", ["StreamingVAD", "MultiStreamVAD",
+                                      "StreamingAVVAD", "MultiStreamAVVAD"])
+def test_streamers_raise_without_a_card(monkeypatch, streamer):
+    """Every streaming server needs a card unless given device="cpu"."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import AVVAD, AudioVAD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = (AVVAD(lstm_hidden_size=8, lstm_layers=1, mcb_output_size=64)
+             if "AV" in streamer else AudioVAD(lstm_hidden_size=8, lstm_layers=1))
+    args = (model, 2) if streamer.startswith("Multi") else (model,)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(serve, streamer)(*args)
+    server = getattr(serve, streamer)(*args, block_frames=4, device="cpu")
+    pcm = np.random.default_rng(0).normal(size=1024 + 3 * 256).astype(np.float32)
+    video = np.zeros((4, 67, 67), np.float32)
+    if streamer.startswith("Multi"):
+        server.feed(0, pcm, *([video] if "AV" in streamer else []))
+        probs = server.tick()[0]
+    else:
+        probs = server.feed(pcm, *([video] if "AV" in streamer else []))
+    assert probs.shape == (4,) and ((probs >= 0) & (probs <= 1)).all()
+
+
+def test_probe_tool_raises_without_a_card(monkeypatch):
+    from avvad_tpu_torch.tools import lstm_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lstm_probe.main(["--b", "2", "--t", "2", "--h", "32", "--iters", "1"])
+    res = lstm_probe.main(["--b", "2", "--t", "2", "--h", "32", "--iters", "1",
+                           "--modes", "full", "--device", "cpu"])
+    assert list(res["probe"]) == ["full"]
+
+
+@pytest.mark.parametrize("bad", ["mode", "w_shape", "c0_shape"])
+def test_probe_wrapper_rejects_bad_arguments(bad):
+    from avvad_tpu_torch.ops.lstm_fused import lstm_probe
+
+    kw = dict(x_proj=torch.zeros(2, 3, 32), w_hh=torch.zeros(8, 32), mode="full")
+    if bad == "mode":
+        kw["mode"] = "half"
+    elif bad == "w_shape":
+        kw["w_hh"] = torch.zeros(32, 8)
+    else:
+        kw["c0"] = torch.zeros(3, 8)
+    with pytest.raises(ValueError):
+        lstm_probe(**kw)
