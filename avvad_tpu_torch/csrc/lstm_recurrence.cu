@@ -47,7 +47,8 @@
 // h_{t-1} is read straight from y[:, t-1] (step t writes only y[:, t], so
 // blocks never race) and c is updated in place by the thread that owns it.
 // A weight-stationary persistent kernel (W slice resident in shared memory,
-// grid-wide barrier per step) is the later, faster design.
+// a barrier per step) is the faster design: lstm_persistent.cu has it for
+// the training forward, which comes here only at shapes outside its plan.
 // fwd_train writes 5 more floats per cell and step (c_t and four gates):
 // at the training shape (B=16, T=512, H=1024) 168 MB more, still far below
 // its 2*B*T*H*4H operations at the fp32 CUDA-core rate.

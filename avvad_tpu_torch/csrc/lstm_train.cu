@@ -33,8 +33,9 @@
 // through shared memory, then the owner of (b, j) runs the elementwise
 // backward and writes its four gate gradients. Step t reads d_gates[:, t+1]
 // and writes only d_gates[:, t], so blocks never race; dc is updated in
-// place by the thread that owns it. A persistent kernel with W^T resident
-// in shared memory (grid-wide barrier per step) is the later, faster design.
+// place by the thread that owns it. The persistent kernel with W^T resident
+// in shared memory (lstm_bwd_persist, lstm_persistent.cu) is the faster
+// design and takes the shapes its plan fits; this one runs the others.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -34,6 +34,10 @@ SIGNATURES = {
     "lstm_fwd_train_f32h": [_P] * 7 + [_I] * 3 + [_P],
     # dy, gates, c_seq, c_prev, w^T, d_gates, dh0, dc, B, T, H, stream
     "lstm_bwd_f32h": [_P] * 8 + [_I] * 3 + [_P],
+    # the two above as one cooperative launch a layer: the same arguments
+    # with the grid barrier's zeroed 32-bit counter before B
+    "lstm_fwd_train_persist": [_P] * 8 + [_I] * 3 + [_P],
+    "lstm_bwd_persist": [_P] * 9 + [_I] * 3 + [_P],
     # xp, w, h0, c, y, scratch (B, 4H), B, T, H, mode, stream
     "lstm_probe": [_P] * 6 + [_I] * 4 + [_P],
     # x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, out,

@@ -2,29 +2,37 @@
 
 Counterpart of avvad_tpu/ops/lstm_pallas.py:387 ``lstm_layer_fused`` and
 its custom VJP (``_make_lstm_vjp``). On a CUDA tensor each wrapper
-launches its hand-written kernel (``csrc/lstm_recurrence.cu``,
-``csrc/lstm_train.cu``; one launch per time step) or raises; on a CPU
-tensor it runs its plain version, the same arithmetic in plain PyTorch.
+launches its hand-written kernel or raises; on a CPU tensor it runs its
+plain version, the same arithmetic in plain PyTorch. The inference and
+probe kernels (``csrc/lstm_recurrence.cu``) are one launch per time step.
+The two training kernels are one cooperative launch per layer
+(``csrc/lstm_persistent.cu``: the weight slice stays in shared memory and
+a grid barrier separates the steps) wherever ``persistent_plan`` fits the
+shape on the card; elsewhere they are the per-step kernels of
+``csrc/lstm_recurrence.cu`` and ``csrc/lstm_train.cu``.
 The Pallas batch padding to 8/32 rows is a TPU tiling rule: rows are
 independent, so the port runs the batch as given.
 
 Kernels (see the source note in the .cu files for bounds and design):
 
-===========  =======================  ======================================
-variant      kernel                   replaces (avvad_tpu/ops/lstm_pallas.py)
-===========  =======================  ======================================
-"none"       ``lstm_f32h``            ``_lstm_kernel`` via ``_fwd_infer_call``
-"bf16"       ``lstm_bf16h``           ``_lstm_kernel_hbf16`` via ``_fwd_quant_call``
-"int8"       ``lstm_int8``            ``_lstm_kernel_int8`` via ``_fwd_quant_call``
-"fwd_train"  ``lstm_fwd_train_f32h``  ``_lstm_fwd_train_kernel`` via ``_fwd_train_call``
-"bwd"        ``lstm_bwd_f32h``        ``_lstm_bwd_kernel`` via ``_bwd_call``
-"probe"      ``lstm_probe``           the probe kernel of scripts/bench_lstm_probe.py:71
-===========  =======================  ======================================
+===================  ==========================  ======================================
+variant              kernel                      replaces (avvad_tpu/ops/lstm_pallas.py)
+===================  ==========================  ======================================
+"none"               ``lstm_f32h``               ``_lstm_kernel`` via ``_fwd_infer_call``
+"bf16"               ``lstm_bf16h``              ``_lstm_kernel_hbf16`` via ``_fwd_quant_call``
+"int8"               ``lstm_int8``               ``_lstm_kernel_int8`` via ``_fwd_quant_call``
+"fwd_train_persist"  ``lstm_fwd_train_persist``  ``_lstm_fwd_train_kernel`` via ``_fwd_train_call``
+"bwd_persist"        ``lstm_bwd_persist``        ``_lstm_bwd_kernel`` via ``_bwd_call``
+"fwd_train"          ``lstm_fwd_train_f32h``     the same, per step: shapes outside the plan
+"bwd"                ``lstm_bwd_f32h``           the same, per step: shapes outside the plan
+"probe"              ``lstm_probe``              the probe kernel of scripts/bench_lstm_probe.py:71
+===================  ==========================  ======================================
 
 Under autograd (grad enabled and an input that requires it)
 ``lstm_layer_fused`` runs ``LSTMRecurrence``: its forward is the
-"fwd_train" kernel, which also keeps c_t and the activated gates, and its
-backward the "bwd" kernel, with dW_hh as one fp32 matmul outside, as
+training forward (K1d), which also keeps c_t and the activated gates, and
+its backward the reverse-time kernel (K1e), with dW_hh as one fp32 matmul
+outside, as
 JAX's custom VJP computes it. Layouts are batch-major (B, T, ...)
 throughout; the JAX kernels take time-major arrays.
 
@@ -40,19 +48,81 @@ import torch
 from .qparams import weight_qparams
 
 STATE_QUANTS = ("none", "bf16", "int8")
-TRAIN_KERNELS = ("fwd_train", "bwd")
+TRAIN_KERNELS = ("fwd_train_persist", "bwd_persist", "fwd_train", "bwd")
 PROBE_MODES = ("full", "h_bf16", "gates_only", "matmul_only")  # the C entry's codes
 KERNEL_NAMES = {"none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
+                "fwd_train_persist": "lstm_fwd_train_persist",
+                "bwd_persist": "lstm_bwd_persist",
                 "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
                 "probe": "lstm_probe"}
 
-# Kernel launches per variant, counted by the CUDA wrappers only.
+# Kernel launches per variant, counted by the CUDA wrappers only. A
+# persistent kernel is one launch a layer, a per-step one T (or T + 1).
 launches = {k: 0 for k in KERNEL_NAMES}
+
+# Geometry of the persistent training kernels (csrc/lstm_persistent.cu)
+PERSIST_UNITS = 16     # hidden units a CTA owns for the whole sequence
+PERSIST_ROWS = 8       # batch rows per tile; tiles are dealt to row slices
+PERSIST_CHUNK = 512    # contraction columns per chunk of the staging ring
+PERSIST_STAGES = 3     # chunks in the ring
+# k-groups a CTA splits the contraction over; their partials (8 rows x 64
+# columns, rows padded to 80 floats, forward; 8 x 16 backward) are reduced
+# through shared memory once a step
+PERSIST_K_GROUPS = {"fwd_train_persist": 16, "bwd_persist": 64}
+_PERSIST_PARTIAL_ROW = {"fwd_train_persist": 80, "bwd_persist": 16}
+# dynamic shared memory a block may opt in to on sm_90, the only target
+SMEM_LIMIT_SM90 = 232448
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def persistent_plan(b: int, h: int, sm_count: int,
+                    smem_limit: int = SMEM_LIMIT_SM90) -> dict | None:
+    """The persistent training kernels' plan for a (B, ., H) layer on a
+    card with ``sm_count`` SMs and ``smem_limit`` bytes of shared memory a
+    block, or None where the shape does not fit and the per-step kernels
+    run. The grid is unit slices x row slices: CTA (x, r) owns hidden units
+    [16 x, min(16 x + 16, H)) of the 8-row batch tiles r, r + slices, ...,
+    with its slice of the weight (128 H bytes in both kernels) resident
+    beside the staging ring, the k-groups' partials and the state of its
+    cells. The barrier needs every CTA resident at once, and the plan
+    counts one CTA an SM (a second fits an SM's shared memory only below
+    H = 192): it fits iff H % 4 == 0 (16-byte rows), ceil(H / 16) <= sm_count
+    and the shared memory is within the limit (H <= 1100 at B=16 on a
+    132-SM H100). The row slices are as many as the card holds beside each
+    other, at most one a tile.
+    -> {"units", "rows", "grid": (unit slices, row slices), "smem_bytes":
+    {variant: bytes}}."""
+    if b < 1 or h < 4 or h % 4:
+        return None
+    unit_slices = -(-h // PERSIST_UNITS)
+    tiles = -(-b // PERSIST_ROWS)
+    slices = min(tiles, sm_count // unit_slices)
+    if slices < 1:
+        return None
+    ring = PERSIST_STAGES * PERSIST_ROWS * (PERSIST_CHUNK + 8) * 4
+    state = -(-tiles // slices) * PERSIST_ROWS * PERSIST_UNITS * 4
+    smem = {v: 128 * h + ring + kg * PERSIST_ROWS * _PERSIST_PARTIAL_ROW[v] * 4 + state
+            for v, kg in PERSIST_K_GROUPS.items()}
+    if max(smem.values()) > smem_limit:
+        return None
+    return {"units": PERSIST_UNITS, "rows": PERSIST_ROWS, "grid": (unit_slices, slices),
+            "smem_bytes": smem}
+
+
+def _persistent(dev: torch.device, b: int, h: int) -> bool:
+    """Whether the persistent kernels take a (B, ., H) layer on this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return persistent_plan(b, h, sms) is not None
+
+
+def _barrier(dev: torch.device, b: int) -> torch.Tensor:
+    """The barriers' counters for one launch: zeroed 32-bit words, one a
+    batch tile (a row slice uses one)."""
+    return torch.zeros(-(-b // PERSIST_ROWS), dtype=torch.int32, device=dev)
 
 
 def _check_args(x_proj, w_hh, h0, c0, state_quant):
@@ -217,8 +287,8 @@ def _run(variant: str, dev: torch.device, fn, *args) -> None:
 
 
 def _launch(x_proj, w_hh, h0, c0, variant):
-    """Forward kernels: "none" / "bf16" / "int8" -> y; "fwd_train" ->
-    (y, c_seq, gates)."""
+    """Forward kernels: "none" / "bf16" / "int8" -> y; "fwd_train" and
+    "fwd_train_persist" -> (y, c_seq, gates)."""
     from ._build import kernel_lib
 
     dev = x_proj.device
@@ -232,7 +302,8 @@ def _launch(x_proj, w_hh, h0, c0, variant):
     _on_device("h0", h0, dev)
     _on_device("c0", c, dev)
     y = torch.empty(b, t, h, device=dev)
-    train = variant == "fwd_train"
+    persist = variant == "fwd_train_persist"
+    train = persist or variant == "fwd_train"
     if train:
         c_seq = torch.empty(b, t, h, device=dev)
         gates = torch.empty(b, t, h4, device=dev)
@@ -254,8 +325,11 @@ def _launch(x_proj, w_hh, h0, c0, variant):
                 y.data_ptr()]
         if train:
             ptrs += [c_seq.data_ptr(), gates.data_ptr()]
+        if persist:
+            bar = _barrier(dev, b)
+            ptrs.append(bar.data_ptr())
         _run(variant, dev, getattr(lib, KERNEL_NAMES[variant]), *ptrs, b, t, h)
-    launches[variant] += t
+    launches[variant] += 1 if persist else t
     return out
 
 
@@ -264,20 +338,25 @@ def lstm_fwd_train(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    c0: torch.Tensor | None = None) -> tuple:
     """K1d: the forward of training -> (y, c_seq, gates), as
     ``lstm_fwd_train_plain``. A CUDA ``x_proj`` launches
-    ``lstm_fwd_train_f32h`` T times (or raises); a CPU one runs the plain
-    version."""
+    ``lstm_fwd_train_persist`` once where ``persistent_plan`` fits the
+    shape on its card, else ``lstm_fwd_train_f32h`` T times, or raises; a
+    CPU one runs the plain version."""
     _check_args(x_proj, w_hh, h0, c0, "none")
     if x_proj.is_cuda:
-        return _launch(x_proj, w_hh, h0, c0, "fwd_train")
+        b, _, h4 = x_proj.shape
+        return _launch(x_proj, w_hh, h0, c0,
+                       "fwd_train_persist" if _persistent(x_proj.device, b, h4 // 4)
+                       else "fwd_train")
     return lstm_fwd_train_plain(x_proj, w_hh, h0, c0)
 
 
 def lstm_bwd(dy: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
              c_prev: torch.Tensor, w_hh: torch.Tensor) -> tuple:
     """K1e: the reverse-time backward -> (d_gates, dh0, dc0), as
-    ``lstm_bwd_plain``. CUDA ``gates`` launch ``lstm_bwd_f32h`` T + 1
-    times (T steps and the dh0 contraction) or raise; CPU ones run the
-    plain version."""
+    ``lstm_bwd_plain``. CUDA ``gates`` launch ``lstm_bwd_persist`` once
+    (the T steps and the dh0 contraction) where ``persistent_plan`` fits
+    the shape on their card, else ``lstm_bwd_f32h`` T + 1 times, or raise;
+    CPU ones run the plain version."""
     _check_bwd_args(dy, gates, c_seq, c_prev, w_hh)
     if not gates.is_cuda:
         return lstm_bwd_plain(dy, gates, c_seq, c_prev, w_hh)
@@ -297,10 +376,16 @@ def lstm_bwd(dy: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
     dc = torch.zeros(b, h, device=dev)  # dc_{t+1}, in place; dc0 on return
     if t == 0 or b == 0:
         return d_gates, dh0, dc
-    _run("bwd", dev, kernel_lib().lstm_bwd_f32h, dy.data_ptr(), gates.data_ptr(),
-         c_seq.data_ptr(), c_prev.data_ptr(), wt.data_ptr(), d_gates.data_ptr(),
-         dh0.data_ptr(), dc.data_ptr(), b, t, h)
-    launches["bwd"] += t + 1
+    ptrs = [dy.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), c_prev.data_ptr(),
+            wt.data_ptr(), d_gates.data_ptr(), dh0.data_ptr(), dc.data_ptr()]
+    if _persistent(dev, b, h):
+        bar = _barrier(dev, b)
+        _run("bwd_persist", dev, kernel_lib().lstm_bwd_persist, *ptrs,
+             bar.data_ptr(), b, t, h)
+        launches["bwd_persist"] += 1
+    else:
+        _run("bwd", dev, kernel_lib().lstm_bwd_f32h, *ptrs, b, t, h)
+        launches["bwd"] += t + 1
     return d_gates, dh0, dc
 
 

@@ -28,12 +28,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch counts, outputs, the step against the same step with the plain
    K2/K3 versions, times, stages and a profile line; and the int8 tower's
    features against the fp32 float tower's on the same frames;
-7. the training kernels against their plain versions at the training
-   shape (B=16, T=512, H=1024) and the ragged one: K1d (forward with
+7. the training kernels against their plain versions: K1d (forward with
    residuals), K1e (reverse-time backward), and the four gradients of the
-   autograd Function that joins them; CUDA-event times of each kernel and
-   its plain version, one cuDNN torch.nn.LSTM layer's forward with grad
-   (K1d) and backward (K1e), and the bounds;
+   autograd Function that joins them. At the training shape (B=16, T=512,
+   H=1024) and the ragged one the wrappers take the persistent kernels
+   (one cooperative launch a layer); at a small shape outside their plan
+   (B=3, T=7, H=1030: H % 4 != 0) they take the per-step kernels; the
+   launch counters show each route. CUDA-event times at the training shape
+   of each persistent kernel, of the per-step kernel it replaces there
+   (the route forced for the timing), of the plain version and of one
+   cuDNN torch.nn.LSTM layer's forward with grad (K1d) and backward (K1e),
+   and the bounds;
 8. the full-width AV train step (fp32, frozen ResNet-18 trunk in train
    mode, MCB 1024, 2 x LSTM 1024, Adam 1e-4, B=16, T=512, seeded batch on
    the card): launch counters, loss and metrics, the step's gradients
@@ -41,7 +46,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    after a warm-up), x real time, peak memory, stage times by CUDA events
    (inputs, tower, fusion, LSTM forward, head and loss, backward,
    optimizer, metrics) and one {"profile": ...} line; then the audio
-   (AudioVAD) train step at the same B, T and H;
+   (AudioVAD) train step at the same B, T and H: 2 persistent K1d and 2
+   persistent K1e launches a step, no per-step launch; then an AudioVAD
+   train step outside the plan (2 x LSTM 1030, B=4, T=64), which goes
+   through the per-step K1d and K1e (2 T and 2 (T + 1) launches);
 9. a short Trainer.fit (one epoch of 2 batches and an eval pass, K1a) of
    the AV model with a checkpoint round trip into a temporary directory
    under build/: the restored state equals the saved one, and one more
@@ -68,7 +76,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
     each;
-14. one {"kernels": [...]} line (11 rows), then the ok line with the device.
+14. one {"kernels": [...]} line (13 rows), then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -125,16 +133,25 @@ PROB_TOL = 1e-4
 STAGES = ("frontend", "tower", "fusion", "lstm", "head")
 # the training slice: the reference recipe that bench.py --train sizes
 TRAIN_B = 16
-TRAIN_REPLACES = {"fwd_train": "avvad_tpu/ops/lstm_pallas.py:279",
+TRAIN_REPLACES = {"fwd_train_persist": "avvad_tpu/ops/lstm_pallas.py:279",
+                  "bwd_persist": "avvad_tpu/ops/lstm_pallas.py:314",
+                  "fwd_train": "avvad_tpu/ops/lstm_pallas.py:279",
                   "bwd": "avvad_tpu/ops/lstm_pallas.py:314"}
-TRAIN_SOURCES = {"fwd_train": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+TRAIN_SOURCES = {"fwd_train_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
+                 "bwd_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
+                 "fwd_train": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
                  "bwd": "avvad_tpu_torch/csrc/lstm_train.cu"}
+# outside the persistent kernels' plan on any card (H % 4 != 0): the
+# per-step K1d / K1e
+OUT_OF_PLAN = (3, 7, 1030)
+OUT_OF_PLAN_STEP = {"h": 1030, "b": 4, "t": 64}
 # K1d against its plain version: K1a's arithmetic (KERNEL_TOL["none"]).
 # K1e, the Function's gradients and a train step's gradients against the
 # plain recurrence on the same card: fp32 sums in another order over T
 # reverse steps, as the largest error over the largest |plain| value.
-# H100 80GB HBM3 (700 W) readings: K1d 3.6e-7; K1e 5.8e-7, the Function's
-# gradients 6.2e-7; train steps 7.2e-7 (AV) and 7.8e-7 (audio), loss equal
+# H100 80GB HBM3 (700 W) readings, per-step kernels: K1d 3.6e-7; K1e
+# 5.8e-7, the Function's gradients 6.2e-7; train steps 7.2e-7 (AV) and
+# 7.8e-7 (audio), loss equal; the persistent kernels read the same orders
 TRAIN_REL_TOL = 1e-4
 STEP_GRAD_REL_TOL = 1e-3
 # the step's loss, kernel recurrence against plain
@@ -582,6 +599,18 @@ def plain_recurrence(lstm_fused):
         lstm_fused.lstm_fwd_train, lstm_fused.lstm_bwd = saved
 
 
+@contextlib.contextmanager
+def per_step_route(lstm_fused):
+    """The wrappers with the persistent plan refused: the per-step K1d /
+    K1e at a shape the plan would take, to time both on the same inputs."""
+    saved = lstm_fused._persistent
+    lstm_fused._persistent = lambda *_: False
+    try:
+        yield
+    finally:
+        lstm_fused._persistent = saved
+
+
 def train_inputs(b: int, t: int, h: int, seed: int) -> tuple:
     """x_proj, W_hh, h0, c0 and a cotangent dy, seeded, on the card."""
     g = torch.Generator().manual_seed(seed)
@@ -614,32 +643,45 @@ def train_bound(b: int, t: int, h: int, kind: str) -> tuple[float, str]:
 
 
 def train_kernel_phase(lstm_fused) -> dict:
-    """K1d, K1e and the Function's gradients against their plain versions
-    at the training shape and the ragged one; times, library times and
-    bounds at the training shape -> kernel rows."""
-    errs = {"fwd_train": [], "bwd": [], "grads": []}
-    for b, t, h in ((TRAIN_B, T, H), RAGGED):
+    """K1d, K1e and the Function's gradients against their plain versions:
+    the persistent kernels at the training shape and the ragged one, the
+    per-step kernels at a shape outside the plan, each route shown by the
+    launch counters; times, library times and bounds at the training
+    shape -> kernel rows."""
+    errs = {k: [] for k in (*lstm_fused.TRAIN_KERNELS, "grads_persist", "grads")}
+    for (b, t, h), sfx in (((TRAIN_B, T, H), "_persist"), (RAGGED, "_persist"),
+                           (OUT_OF_PLAN, "")):
+        fwd, bwd = "fwd_train" + sfx, "bwd" + sfx
         xp, w, h0, c0, dy = train_inputs(b, t, h, seed=6)
+        lstm_fused.reset_launches()
         y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
         torch.cuda.synchronize()
         ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
-        errs["fwd_train"].append(max((a - r).abs().max().item()
-                                     for a, r in zip((y, c_seq, gates), ref)))
+        errs[fwd].append(max((a - r).abs().max().item()
+                             for a, r in zip((y, c_seq, gates), ref)))
         c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
         got = lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w)
         torch.cuda.synchronize()
         ref = lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w)
-        errs["bwd"].append(max(rel_err(a, r) for a, r in zip(got, ref)))
+        errs[bwd].append(max(rel_err(a, r) for a, r in zip(got, ref)))
         got = function_grads(lstm_fused, xp, w, h0, c0, dy)
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        # the wrapper's call and the Function's: one launch each where the
+        # kernel is persistent, T and T + 1 where it is per step
+        expect = {fwd: 2 if sfx else 2 * t, bwd: 2 if sfx else 2 * (t + 1)}
+        if counts != expect:
+            raise RuntimeError(f"training kernels B={b} T={t} H={h}: launch counts "
+                               f"{counts}, expected {expect}")
         with plain_recurrence(lstm_fused):
             ref = function_grads(lstm_fused, xp, w, h0, c0, dy)
-        errs["grads"].append(max(rel_err(a, r) for a, r in zip(got, ref)))
-        print(f"training kernels B={b} T={t} H={h}: K1d max|kernel-plain| "
-              f"{errs['fwd_train'][-1]:.3e} (tol {KERNEL_TOL['none']:g}); K1e "
-              f"rel {errs['bwd'][-1]:.3e}, Function grads (dx_proj, dW_hh, dh0, "
-              f"dc0) rel {errs['grads'][-1]:.3e} (tol {TRAIN_REL_TOL:g})")
-        if not (errs["fwd_train"][-1] <= KERNEL_TOL["none"]
-                and errs["bwd"][-1] <= TRAIN_REL_TOL and errs["grads"][-1] <= TRAIN_REL_TOL):
+        errs["grads" + sfx].append(max(rel_err(a, r) for a, r in zip(got, ref)))
+        print(f"training kernels B={b} T={t} H={h}, launches {counts}: K1d "
+              f"{lstm_fused.KERNEL_NAMES[fwd]} max|kernel-plain| {errs[fwd][-1]:.3e} (tol "
+              f"{KERNEL_TOL['none']:g}); K1e {lstm_fused.KERNEL_NAMES[bwd]} rel "
+              f"{errs[bwd][-1]:.3e}, Function grads (dx_proj, dW_hh, dh0, dc0) rel "
+              f"{errs['grads' + sfx][-1]:.3e} (tol {TRAIN_REL_TOL:g})")
+        if not (errs[fwd][-1] <= KERNEL_TOL["none"] and errs[bwd][-1] <= TRAIN_REL_TOL
+                and errs["grads" + sfx][-1] <= TRAIN_REL_TOL):
             raise RuntimeError(f"training kernels disagree with plain: {errs}")
     xp, w, h0, c0, dy = train_inputs(TRAIN_B, T, H, seed=7)
     y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
@@ -657,20 +699,31 @@ def train_kernel_phase(lstm_fused) -> dict:
                                             retain_graph=True))}
     rows = {}
     for kind, (kernel, plain, library) in calls.items():
-        ms, plain_ms, library_ms = cuda_ms(kernel, 5), cuda_ms(plain, 2), cuda_ms(library, 5)
+        # per step, persistent, persistent, per step: in turns on one card
+        lstm_fused.reset_launches()
+        with per_step_route(lstm_fused):
+            step_ms = [cuda_ms(kernel, 5)]
+        persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
+        with per_step_route(lstm_fused):
+            step_ms.append(cuda_ms(kernel, 5))
+        if lstm_fused.launches[kind + "_persist"] != 12 or not lstm_fused.launches[kind]:
+            raise RuntimeError(f"{kind}: timed the wrong route: {lstm_fused.launches}")
+        plain_ms, library_ms = cuda_ms(plain, 2), cuda_ms(library, 5)
         bound_ms, bound_by = train_bound(TRAIN_B, T, H, kind)
-        print(f"{lstm_fused.KERNEL_NAMES[kind]} B={TRAIN_B} T={T} H={H}: kernel {ms:.3f} "
-              f"ms/layer, plain {plain_ms:.3f}, cuDNN LSTM layer "
-              f"{'forward with grad' if kind == 'fwd_train' else 'backward'} "
-              f"{library_ms:.3f}, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{PEAK_NAME['none']} peak, {MEM_BW / 1e12} TB/s)")
-        rows[kind] = {"name": lstm_fused.KERNEL_NAMES[kind], "route": "cuda",
-                      "source": TRAIN_SOURCES[kind], "replaces": TRAIN_REPLACES[kind],
-                      "launches": None,
-                      "max_abs_err": max(errs[kind]) if kind == "fwd_train"
-                      else max(errs["bwd"] + errs["grads"]),
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
+        for name, reps in ((kind + "_persist", persist_ms), (kind, step_ms)):
+            print(f"{lstm_fused.KERNEL_NAMES[name]} B={TRAIN_B} T={T} H={H}: kernel "
+                  f"{min(reps):.3f} ms/layer ({1e3 * min(reps) / T:.2f} us/step; reps "
+                  f"{[round(r, 3) for r in reps]}), plain {plain_ms:.3f}, cuDNN LSTM layer "
+                  f"{'forward with grad' if kind == 'fwd_train' else 'backward'} "
+                  f"{library_ms:.3f}, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{PEAK_NAME['none']} peak, {MEM_BW / 1e12} TB/s)")
+            rows[name] = {"name": lstm_fused.KERNEL_NAMES[name], "route": "cuda",
+                          "source": TRAIN_SOURCES[name], "replaces": TRAIN_REPLACES[name],
+                          "launches": None,
+                          "max_abs_err": max(errs[name]) if kind == "fwd_train"
+                          else max(errs[name] + errs["grads" + name[len(kind):]]),
+                          "ms": min(reps), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": library_ms}
     return rows
 
 
@@ -727,37 +780,43 @@ def timed_train_step(step, state, batch, marks: list) -> tuple[float, dict]:
                 for (a, ea), (b, eb) in zip(marks, marks[1:])}
 
 
-def train_path(rows: dict, modality: str):
-    """One train step at full width with launch counters and the plain
-    recurrence's step as reference, then 3 timed steps and a profiled one
-    -> the train state."""
+def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int = T):
+    """One train step (at full width by default) with launch counters and
+    the plain recurrence's step as reference, then 3 timed steps and a
+    profiled one -> the train state. At H=1024 the recurrence goes through
+    the persistent K1d / K1e, one launch a layer; at an ``h`` outside
+    their plan through the per-step ones."""
     from avvad_tpu_torch.models import AVVAD, AudioVAD
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
     from avvad_tpu_torch.train import create_train_state, make_train_step
 
     av = modality == "av"
-    model = (AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+    model = (AVVAD(lstm_hidden_size=h, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
                    use_kernel_lstm=True, seed=0) if av
-             else AudioVAD(lstm_hidden_size=H, lstm_layers=2, use_kernel_lstm=True, seed=0))
+             else AudioVAD(lstm_hidden_size=h, lstm_layers=2, use_kernel_lstm=True, seed=0))
     reference = copy.deepcopy(model)
     state = create_train_state(model, learning_rate=1e-4, freeze_video_trunk=av)
     step = make_train_step(modality)
-    batch = train_batch(T, TRAIN_B, av, seed=8)
-    print(f"train path {modality}: {type(model).__name__} fp32, LSTM 2x{H}"
+    batch = train_batch(t, b, av, seed=8)
+    persist = lstm_fused.persistent_plan(
+        b, h, torch.cuda.get_device_properties(0).multi_processor_count) is not None
+    fwd, bwd = ("fwd_train_persist", "bwd_persist") if persist else ("fwd_train", "bwd")
+    print(f"train path {modality}: {type(model).__name__} fp32, LSTM 2x{h}"
           f"{', MCB 1024, ResNet-18 frozen (train-mode BatchNorm)' if av else ''}, "
-          f"Adam 1e-4, B={TRAIN_B} T={T}, lengths {batch.lengths.tolist()}")
+          f"Adam 1e-4, B={b} T={t}, lengths {batch.lengths.tolist()}; the plan "
+          f"{'takes' if persist else 'refuses'} H={h}")
     for mod in (lstm_fused, conv_fused, stem_fused):
         mod.reset_launches()
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
     expect = {k: 0 for k in counts}
-    expect.update(fwd_train=2 * T, bwd=2 * (T + 1))
+    expect.update({fwd: 2, bwd: 2} if persist else {fwd: 2 * t, bwd: 2 * (t + 1)})
     if counts != expect:
         raise RuntimeError(f"train {modality}: launch counts {counts}, expected {expect}")
-    if av:
-        rows["fwd_train"]["launches"] = counts["fwd_train"]
-        rows["bwd"]["launches"] = counts["bwd"]
+    if av or not persist:
+        rows[fwd]["launches"] = counts[fwd]
+        rows[bwd]["launches"] = counts[bwd]
     m = {k: v.item() for k, v in metrics.items()}
     if not (np.isfinite(m["loss"]) and all(0 <= m[k] <= 1 for k in m if k != "loss")):
         raise RuntimeError(f"train {modality}: bad metrics {m}")
@@ -774,8 +833,9 @@ def train_path(rows: dict, modality: str):
     loss_err = abs(m["loss"] - ref_metrics["loss"].item()) / abs(ref_metrics["loss"].item())
     del ref_state, reference, ref_grads
     torch.cuda.empty_cache()
-    print(f"train {modality}: launches {counts['fwd_train']} K1d, {counts['bwd']} K1e, "
-          f"{counts['none']} K1a; metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
+    print(f"train {modality}: launches {counts[fwd]} K1d ({lstm_fused.KERNEL_NAMES[fwd]}), "
+          f"{counts[bwd]} K1e ({lstm_fused.KERNEL_NAMES[bwd]}), {counts['none']} K1a; "
+          f"metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
           f"against the plain recurrence: grads rel {grad_err:.3e} (tol "
           f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors, loss rel {loss_err:.3e} "
           f"(tol {STEP_LOSS_REL_TOL:g})")
@@ -791,9 +851,10 @@ def train_path(rows: dict, modality: str):
             hk.remove()
     dt, stage_ms = min(reps, key=lambda r: r[0])
     print(f"train {modality}: {1e3 * dt:.2f} ms/step (reps "
-          f"{[round(1e3 * r[0], 2) for r in reps]}), {TRAIN_B * T / FRAME_RATE / dt:.1f}x "
+          f"{[round(1e3 * r[0], 2) for r in reps]}), {b * t / FRAME_RATE / dt:.1f}x "
           f"real time, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"profile": f"train/{modality}", "stage_ms": stage_ms,
+    print(json.dumps({"profile": f"train/{modality}" + ("" if persist else "/out_of_plan"),
+                      "stage_ms": stage_ms,
                       **profile_step(step, state, batch)}))
     return state
 
@@ -818,7 +879,9 @@ def trainer_phase(state) -> None:
         torch.cuda.synchronize()
         counts = dict(lstm_fused.launches)
         expect = {k: 0 for k in counts}
-        expect.update(fwd_train=2 * 2 * t, bwd=2 * 2 * (t + 1), none=2 * t)
+        # 2 train batches x 2 layers, one persistent launch each way; the
+        # eval pass runs K1a
+        expect.update(fwd_train_persist=2 * 2, bwd_persist=2 * 2, none=2 * t)
         if counts != expect:
             raise RuntimeError(f"Trainer.fit: launch counts {counts}, expected {expect}")
         logs = {name: (Path(model_dir) / name).read_text().splitlines()
@@ -1202,6 +1265,8 @@ def main() -> None:
     state = train_path(rows, "av")
     torch.cuda.empty_cache()
     train_path(rows, "audio")
+    torch.cuda.empty_cache()
+    train_path(rows, "audio", **OUT_OF_PLAN_STEP)
     torch.cuda.empty_cache()
     trainer_phase(state)
     del state

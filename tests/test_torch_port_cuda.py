@@ -234,15 +234,41 @@ def _train_inputs(b, t, h, device, seed=0):
             torch.randn(b, h, generator=g).to(device))
 
 
-@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (16, 64, 1024)])
+def _train_launches(b, t, h, calls=1):
+    """The launch counts of ``calls`` K1d and K1e calls on this card: one
+    launch a call where the persistent plan takes the shape, T and T + 1
+    per-step launches where it does not."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if lstm_fused.persistent_plan(b, h, sms) is not None:
+        return {"fwd_train_persist": calls, "bwd_persist": calls, "fwd_train": 0, "bwd": 0}
+    return {"fwd_train_persist": 0, "bwd_persist": 0, "fwd_train": calls * t,
+            "bwd": calls * (t + 1)}
+
+
+def _train_counts():
+    return {k: lstm_fused.launches[k] for k in lstm_fused.TRAIN_KERNELS}
+
+
+# (3, 7, 1030), (2, 3, 1120) and (4, 2, 2048) lie outside the persistent
+# plan (rows not 16-byte; weight slices beyond the shared memory); (40, 9,
+# 1024) is five batch tiles, the last ragged, on two row slices; (50, 5, 128)
+# seven tiles with a row slice each; H = 100 is no multiple of the 16 units a
+# CTA owns
+@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (16, 64, 1024), (3, 6, 100),
+                                     (40, 9, 1024), (50, 5, 128), (3, 7, 1030),
+                                     (2, 3, 1120), (4, 2, 2048)])
 def test_train_kernels_match_plain(cuda, b, t, h):
     """K1d (y, c_seq, gates) and K1e (d_gates, dh0, dc0) against their plain
-    versions on the same inputs, with launch counts (T and T + 1)."""
+    versions on the same inputs, with the launch counts of the route the
+    shape takes."""
     xp, w, h0, c0 = _train_inputs(b, t, h, cuda)
+    c0_before = c0.clone()
     lstm_fused.reset_launches()
     got = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
     torch.cuda.synchronize()
-    assert lstm_fused.launches["fwd_train"] == t
+    expect = _train_launches(b, t, h)
+    assert _train_counts() == {**expect, "bwd_persist": 0, "bwd": 0}
+    assert torch.equal(c0, c0_before)  # the kernel advances a copy
     ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
     for a, r in zip(got, ref):
         assert a.shape == r.shape and (a - r).abs().max().item() < ATOL["none"]
@@ -251,7 +277,7 @@ def test_train_kernels_match_plain(cuda, b, t, h):
     c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
     got = lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w)
     torch.cuda.synchronize()
-    assert lstm_fused.launches["bwd"] == t + 1
+    assert _train_counts() == expect
     ref = lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w)
     for a, r in zip(got, ref):
         assert a.shape == r.shape and torch.isfinite(a).all() and _rel(a, r) < 1e-4
@@ -270,11 +296,46 @@ def test_recurrence_function_grads_match_plain(cuda, monkeypatch):
 
     lstm_fused.reset_launches()
     got = grads()
-    assert lstm_fused.launches["fwd_train"] == 33 and lstm_fused.launches["bwd"] == 34
+    assert _train_counts() == _train_launches(4, 33, 256)
     monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
     monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
     for a, ref in zip(got, grads()):
         assert a.dtype == torch.float32 and _rel(a, ref) < 1e-4
+
+
+def test_persistent_kernels_repeat_bit_for_bit(cuda):
+    """The partials are summed in a fixed order: two launches agree exactly."""
+    xp, w, h0, c0 = _train_inputs(16, 24, 1024, cuda, seed=5)
+    dy = torch.randn(16, 24, 1024, generator=torch.Generator().manual_seed(6)).to(cuda)
+    runs = []
+    for _ in range(2):
+        y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
+        c_prev = torch.cat([c0[:, None], c_seq[:, :-1]], dim=1)
+        runs.append((y, c_seq, gates, *lstm_fused.lstm_bwd(dy, gates, c_seq, c_prev, w)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_persistent_entry_refuses_a_shape_outside_the_plan(cuda):
+    """The C entries return a CUDA error, and launch nothing, for a grid the
+    card cannot hold at once, a weight slice beyond the shared memory or rows
+    that are not 16-byte: the wrapper's rule, not a failed launch, picks the
+    per-step route."""
+    from avvad_tpu_torch.ops._build import kernel_lib
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, t, h in ((2, 3, 16 * (sms + 1)), (2, 3, 1120), (2, 3, 1030)):
+        assert lstm_fused.persistent_plan(b, h, sms) is None
+        xp, w, h0, c0 = _train_inputs(b, t, h, cuda)
+        y, c_seq = torch.empty(b, t, h, device=cuda), torch.empty(b, t, h, device=cuda)
+        gates = torch.empty(b, t, 4 * h, device=cuda)
+        bar = lstm_fused._barrier(cuda, b)
+        rc = kernel_lib().lstm_fwd_train_persist(
+            xp.data_ptr(), w.to(torch.bfloat16).data_ptr(), h0.data_ptr(),
+            c0.clone().data_ptr(), y.data_ptr(), c_seq.data_ptr(), gates.data_ptr(),
+            bar.data_ptr(), b, t, h, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc != 0 and not bar.any()
 
 
 def test_lstm_layer_fused_keeps_the_graph_on_cuda(cuda):
@@ -319,8 +380,10 @@ def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
         lstm_fused.reset_launches()
         state, metrics = make_train_step("av")(state, batch)
         torch.cuda.synchronize()
-        expect = {"fwd_train": 0, "bwd": 0} if plain else {"fwd_train": 32, "bwd": 34}
-        assert {k: lstm_fused.launches[k] for k in expect} == expect
+        # two layers: two K1d and two K1e calls
+        expect = (dict.fromkeys(lstm_fused.TRAIN_KERNELS, 0) if plain
+                  else _train_launches(2, 16, 64, calls=2))
+        assert _train_counts() == expect
         assert lstm_fused.launches["none"] == 0
         results.append((metrics, {n: p.grad for n, p in state.model.named_parameters()
                                   if p.grad is not None}))
