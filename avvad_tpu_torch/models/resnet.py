@@ -21,7 +21,10 @@ recording the running max in the buffers) or "static" (the recorded max).
 With ``stages_pallas`` and static scales the stem epilogue and the eight
 blocks run as the fused kernels of ``ops/stem_fused.py`` and
 ``ops/conv_fused.py`` (NHWC int8); otherwise the unfused path runs each int8
-convolution exactly as a float64 convolution over the integer values.
+convolution exactly as a float64 convolution over the integer values. The
+fold (quantised and packed weights, folded affines) is computed once and
+kept on the trunk until a parameter, a BatchNorm statistic or a scale
+changes (``ResNet18.folded``).
 """
 
 from __future__ import annotations
@@ -175,7 +178,8 @@ class BasicBlock(nn.Module):
 
     def folded(self, x_scale: torch.Tensor) -> tuple:
         """-> (fold_block arguments for the fused kernel, out_scale), from
-        the static scales (resnet.py:160-180); folded at every forward."""
+        the static scales (resnet.py:160-180). ``ResNet18.folded`` keeps
+        the result between forwards."""
         params = {"conv1": self.conv1.weight, "conv2": self.conv2.weight,
                   "bn1": _bn_params(self.bn1), "bn2": _bn_params(self.bn2)}
         if self.has_downsample:
@@ -245,8 +249,35 @@ class ResNet18(nn.Module):
                 self.block_names.append(name)
                 cin = width
 
+        self._fold = None  # (key, (a, b, specs)) of the last fold
+
     def blocks(self) -> list:
         return [getattr(self, name) for name in self.block_names]
+
+    def _fold_key(self) -> tuple:
+        """What the fold was computed from: identity, storage and version
+        counter of every parameter and buffer. An in-place update (an
+        optimizer step, ``load_state_dict``, calibration's ``copy_``, a
+        train-mode BatchNorm) bumps the version; ``.to()`` or an assignment
+        swaps the tensor or its storage."""
+        return tuple((id(t), t.data_ptr(), t._version, t.device, t.dtype)
+                     for t in (*self.parameters(), *self.buffers()))
+
+    def folded(self) -> tuple:
+        """The fused path's constants: (a, b) of ``fold_stem`` and the 8
+        ``fold_block`` specs, tile-packed weights included. Computed at the
+        first call and again only after a parameter, a BatchNorm statistic
+        or a scale buffer changed."""
+        key = self._fold_key()
+        if self._fold is None or self._fold[0] != key:
+            with torch.no_grad():
+                a, b = fold_stem(self.bn1, self.q_stem)
+                scale, specs = static_scale(self.q_stem), []
+                for block in self.blocks():
+                    spec, scale = block.folded(scale)
+                    specs.append(spec)
+            self._fold = (key, (a, b, specs))
+        return self._fold[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.quant_int8:
@@ -272,10 +303,6 @@ class ResNet18(nn.Module):
             raise ValueError("stages_pallas requires quant_mode='static'")
         if self.training:
             raise ValueError("stages_pallas is inference-only")
-        a, b = fold_stem(self.bn1, self.q_stem)
+        a, b, specs = self.folded()
         x_q = stem_epilogue_pool_quant(stem, a, b)
-        scale, specs = static_scale(self.q_stem), []
-        for block in self.blocks():
-            spec, scale = block.folded(scale)
-            specs.append(spec)
         return trunk_features_int8(x_q, specs)

@@ -38,11 +38,15 @@ SIGNATURES = {
     # with the grid barrier's zeroed 32-bit counter before B
     "lstm_fwd_train_persist": [_P] * 8 + [_I] * 3 + [_P],
     "lstm_bwd_persist": [_P] * 9 + [_I] * 3 + [_P],
+    # lstm_f32h as one cooperative launch a layer: xp, w, h0, c, y, the
+    # barrier's counters, B, T, H, stream
+    "lstm_f32h_persist": [_P] * 6 + [_I] * 3 + [_P],
     # xp, w, h0, c, y, scratch (B, 4H), B, T, H, mode, stream
     "lstm_probe": [_P] * 6 + [_I] * 4 + [_P],
     # x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, out,
-    # N, H, W, Cin, Cout, stride, frames per block, stream
-    "int8_basic_block": [_P] * 12 + [_I] * 7 + [_P],
+    # N, H, W, Cin, Cout, stride, frames per block, ring slots, shared
+    # memory bytes (the three from conv_fused.block_plan), stream
+    "int8_basic_block": [_P] * 12 + [_I] * 9 + [_P],
     # x, a, b, out, N, C, strides (N, C, H, W) in elements, is_bf16, stream
     "stem_epilogue_pool": [_P] * 4 + [_I] * 7 + [_P],
 }

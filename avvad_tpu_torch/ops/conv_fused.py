@@ -14,6 +14,12 @@ Weights are packed as (Cout, taps * Cin) int8 with k = (dy * 3 + dx) * Cin
 each int8 convolution exactly, as a float64 convolution over the integer
 values (|acc| <= 127^2 * 4608 < 2^53), and then the kernel's float32
 epilogue as separate operations, so the two agree bit for bit.
+
+The kernel reads each weight as tile-major chunks (``pack_tiles``): n tile
+x k chunk of 128, every chunk the shared-memory image an int8 ``wgmma``
+takes its B operand from, so that one bulk copy stages it. ``block_plan``
+picks the frames a CTA takes, the ring depth and the shared memory; the C
+entry checks the bytes against its own count.
 """
 
 from __future__ import annotations
@@ -30,11 +36,16 @@ BN_EPS = 1e-5
 TRUNK_GEOM = ((17, 1), (17, 1), (17, 2), (9, 1), (9, 2), (5, 1), (5, 2), (3, 1))
 TRUNK_WIDTHS = (64, 64, 128, 128, 256, 256, 512, 512)
 
-# Frames per CTA at the trunk's geometries: about 128-600 output pixels each
-# (see the source note), at most 93 KB of shared memory.
-_FRAMES_PER_CTA = {(17, 1): 2, (17, 2): 2, (9, 1): 4, (9, 2): 4, (5, 1): 5,
-                   (5, 2): 7, (3, 1): 7}
-_SMEM_PAD, _SMEM_MAX = 16, 227 * 1024
+# Geometry of the kernel (csrc/int8_basic_block.cu)
+M_TILE = 64            # output rows of one wgmma
+K_CHUNK = 128          # k per weight chunk: one 128-byte swizzled row
+CONSUMER_GROUPS = 2    # warpgroups that share every weight chunk
+MAX_STAGES, MIN_STAGES = 4, 2   # chunks in the weight ring
+SMEM_PAD = 16          # bytes of padding per pixel row of the x and y1 tiles
+SMEM_ALIGN = 1024      # the ring starts on the swizzle pattern's period
+# dynamic shared memory a block may opt in to on sm_90, the only target
+SMEM_LIMIT_SM90 = 232448
+SM_COUNT_H100 = 132
 
 # Kernel launches, counted by the CUDA wrapper only.
 launches = {KERNEL_NAME: 0}
@@ -81,7 +92,8 @@ def fold_block(x_scale, params: dict, q1_scale, qout_scale,
     weights, ``bn1`` / ``bn2`` [/ ``downsample_bn``] (scale, bias, mean,
     var). x_scale, q1_scale, qout_scale: the static activation scales
     (amax / 127). -> w1, a1, b1, w2, a2, b2 and wd, ad, bd (downsample) or
-    res_scale (identity), plus out_scale."""
+    res_scale (identity), plus out_scale and ``tiles``, the weights as the
+    kernel reads them (``pack_block_tiles``)."""
     w1_q, w1_s = quant_hwio(params["conv1"])
     w2_q, w2_s = quant_hwio(params["conv2"])
     a1, b1 = bn_affine(params["bn1"], eps)
@@ -97,6 +109,7 @@ def fold_block(x_scale, params: dict, q1_scale, qout_scale,
                     bd=bd / qout_scale)
     else:
         spec["res_scale"] = x_scale / qout_scale
+    spec["tiles"] = pack_block_tiles(spec["w1"], spec["w2"], spec.get("wd"))
     return spec
 
 
@@ -133,8 +146,10 @@ def conv_exact(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> torch
 
 
 def basic_block_int8_plain(x, w1, a1, b1, w2, a2, b2, wd=None, ad=None, bd=None,
-                           res_scale=None, *, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same arguments, same result."""
+                           res_scale=None, *, stride: int = 1,
+                           tiles: tuple | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: same arguments (``tiles`` is
+    not read), same result."""
     _check(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride)
     cin, cout = x.shape[3], w1.shape[0]
     col = lambda v: v.float().view(1, cout, 1, 1)  # noqa: E731
@@ -152,18 +167,119 @@ def basic_block_int8_plain(x, w1, a1, b1, w2, a2, b2, wd=None, ad=None, bd=None,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def frames_per_cta(h: int, w: int, stride: int, cin: int, cout: int) -> int:
-    """Frames per CTA: the trunk's table, else about 128 output pixels,
-    capped by the shared memory the frames' x and y1 take."""
+def n_tile(cout: int) -> int:
+    """Output channels per wgmma and weight chunk: the largest of 128, 64
+    and 32 that divides Cout."""
+    return 128 if cout % 128 == 0 else 64 if cout % 64 == 0 else 32
+
+
+def block_smem_bytes(frames: int, stages: int, h: int, w: int, stride: int,
+                     cin: int, cout: int) -> int:
+    """Shared memory of a CTA: alignment slack, the weight ring, the x and
+    y1 tiles of its frames, the ring's barriers (smem_bytes in the source)."""
     ho, wo = conv_out(h, stride), conv_out(w, stride)
-    per_frame = h * w * (cin + _SMEM_PAD) + ho * wo * (cout + _SMEM_PAD)
-    f = _FRAMES_PER_CTA.get((h, stride)) if h == w else None
-    if f is None:
-        f = max(1, 128 // (ho * wo))
-    return max(1, min(f, _SMEM_MAX // per_frame))
+    return (SMEM_ALIGN + stages * n_tile(cout) * K_CHUNK
+            + frames * (h * w * (cin + SMEM_PAD) + ho * wo * (cout + SMEM_PAD))
+            + 2 * MAX_STAGES * 8)
 
 
-def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride):
+def block_plan(h: int, w: int, stride: int, cin: int, cout: int,
+               smem_limit: int = SMEM_LIMIT_SM90, n_frames: int | None = None,
+               sm_count: int = SM_COUNT_H100, down: bool | None = None) -> dict:
+    """How the kernel cuts one BasicBlock of (H, W, Cin) -> (Ho, Wo, Cout)
+    frames, or ValueError with the reason where it cannot take the shape.
+
+    A CTA takes ``frames`` whole frames: rows = frames * Ho * Wo output
+    pixels in ``m_tiles`` tiles of 64 rows, dealt to the two consumer
+    warpgroups, ``tiles_per_group`` (2; 1 in a downsample block, which holds
+    two accumulator sets) at a time: a pass, against every weight chunk of a
+    conv. The weights' bytes a CTA pulls through L2 are ``passes`` x the
+    block's weights, the tensor-core time goes with ceil(m_tiles / 2) x 64
+    rows, and every CTA pays a fixed start and end, so ``frames`` minimises
+        (128 ceil(m_tiles / 2) + 0.5 * 256 passes + 48) / rows
+    over the frame counts whose shared memory fits ``smem_limit`` with a
+    ring of 2 slots; the ring then takes as many slots, up to 4, as fit
+    beside them (on the card the depth beyond 2 moved no block's time, the
+    rows a pass did). With ``n_frames``
+    given, ``frames`` is capped so that a small batch still spreads over
+    ``sm_count`` SMs. ``down``: whether the shortcut is a 1x1 conv (by
+    default where the shape changes).
+    -> {"frames", "rows", "m_tiles", "tiles_per_group", "passes", "n_tile",
+    "n_tiles", "k_chunks": (conv1, conv2, downsample or 0), "stages",
+    "chunk_bytes", "smem_bytes"}."""
+    if min(h, w, cin, cout) < 1 or stride not in (1, 2):
+        raise ValueError(f"bad block geometry {(h, w, stride, cin, cout)}")
+    if cin % 32 or cout % 32:
+        raise ValueError("the fused int8 block kernel needs Cin % 32 == 0 (k steps "
+                         f"of 32) and Cout % 32 == 0 (n tiles), got {cin}, {cout}")
+    if down is None:
+        down = stride != 1 or cin != cout
+    elif not down and (stride != 1 or cin != cout):
+        raise ValueError("the identity shortcut needs stride 1 and Cin == Cout")
+    per_group = 1 if down else 2
+    pixels = conv_out(h, stride) * conv_out(w, stride)
+    cap = None if n_frames is None else max(1, -(-n_frames // sm_count))
+    best, frames = None, 0
+    while cap is None or frames < cap:
+        frames += 1
+        stages = next((s for s in range(MAX_STAGES, MIN_STAGES - 1, -1)
+                       if block_smem_bytes(frames, s, h, w, stride, cin, cout)
+                       <= smem_limit), None)
+        if stages is None:
+            break
+        rows = frames * pixels
+        m_tiles = -(-rows // M_TILE)
+        passes = -(-m_tiles // (CONSUMER_GROUPS * per_group))
+        cost = (2 * M_TILE * -(-m_tiles // CONSUMER_GROUPS) + 0.5 * 256 * passes + 48) / rows
+        if best is None or cost < best[0] - 1e-9:
+            best = (cost, frames, stages, rows, m_tiles, passes)
+    if best is None:
+        raise ValueError(
+            f"one {h}x{w}x{cin} frame with its {cout}-channel y1 and a 2-slot weight "
+            f"ring takes {block_smem_bytes(1, MIN_STAGES, h, w, stride, cin, cout)} "
+            f"bytes of shared memory, over the limit of {smem_limit}")
+    _, frames, stages, rows, m_tiles, passes = best
+    nt = n_tile(cout)
+    return {"frames": frames, "rows": rows, "m_tiles": m_tiles,
+            "tiles_per_group": per_group, "passes": passes, "n_tile": nt,
+            "n_tiles": cout // nt,
+            "k_chunks": (-(-9 * cin // K_CHUNK), -(-9 * cout // K_CHUNK),
+                         -(-cin // K_CHUNK) if down else 0),
+            "stages": stages, "chunk_bytes": nt * K_CHUNK,
+            "smem_bytes": block_smem_bytes(frames, stages, h, w, stride, cin, cout)}
+
+
+def _swizzle_index(nt: int, device) -> torch.Tensor:
+    """(nt, 8): where the 16-byte group c of row n lies in its 128-byte row
+    under the 128-byte swizzle, c ^ (n % 8) (its own inverse)."""
+    n = torch.arange(nt, device=device)[:, None]
+    return torch.arange(8, device=device)[None, :] ^ (n % 8)
+
+
+def pack_tiles(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, K) int8 (``pack_conv3`` / ``pack_conv1``) -> (n tiles, k
+    chunks, n_tile, 128) int8, each [i, j] the shared-memory image of rows
+    [i n_tile, (i + 1) n_tile) x k [128 j, 128 j + 128): K-major rows of 128
+    bytes whose 16-byte groups are swizzled by the row (c ^ (n % 8)), k
+    zero-padded to a multiple of 128."""
+    cout, k = w.shape
+    nt = n_tile(cout)
+    if cout % nt:
+        raise ValueError(f"Cout must be a multiple of 32, got {cout}")
+    kc = -(-k // K_CHUNK)
+    wp = F.pad(w, (0, kc * K_CHUNK - k))
+    t = wp.view(cout // nt, nt, kc, 8, 16).permute(0, 2, 1, 3, 4)
+    idx = _swizzle_index(nt, w.device)
+    t = t[:, :, torch.arange(nt, device=w.device)[:, None], idx]
+    return t.reshape(cout // nt, kc, nt, K_CHUNK).contiguous()
+
+
+def pack_block_tiles(w1, w2, wd=None) -> tuple:
+    """The three weights of a block as the kernel reads them."""
+    return (pack_tiles(w1), pack_tiles(w2), None if wd is None else pack_tiles(wd))
+
+
+def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride, tiles):
     from ._build import kernel_lib
 
     n, h, w, cin = x.shape
@@ -171,10 +287,20 @@ def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride):
     dev = x.device
     if x.dtype != torch.int8 or not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC int8 on the CUDA device")
-    if cin % 32 or cout % 32:
-        raise ValueError(f"Cin and Cout must be multiples of 32, got {cin}, {cout}")
-    for name, v, dt in (("w1", w1, torch.int8), ("w2", w2, torch.int8),
-                        ("wd", wd, torch.int8), ("a1", a1, torch.float32),
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = block_plan(h, w, stride, cin, cout, n_frames=n, sm_count=sms,
+                      down=wd is not None)
+    if tiles is None:
+        tiles = pack_block_tiles(w1, w2, wd)
+    t1, t2, td = tiles
+    shape = lambda kc: (plan["n_tiles"], kc, plan["n_tile"], K_CHUNK)  # noqa: E731
+    for name, v, kc in (("w1", t1, plan["k_chunks"][0]), ("w2", t2, plan["k_chunks"][1]),
+                        ("wd", td, plan["k_chunks"][2])):
+        if (v is None) != (kc == 0) or (v is not None and tuple(v.shape) != shape(kc)):
+            raise ValueError(f"tiles of {name} must be pack_tiles of it, "
+                             f"{shape(kc) if kc else None}")
+    for name, v, dt in (("w1 tiles", t1, torch.int8), ("w2 tiles", t2, torch.int8),
+                        ("wd tiles", td, torch.int8), ("a1", a1, torch.float32),
                         ("b1", b1, torch.float32), ("a2", a2, torch.float32),
                         ("b2", b2, torch.float32), ("ad", ad, torch.float32),
                         ("bd", bd, torch.float32)):
@@ -191,27 +317,34 @@ def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride):
     ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         rc = kernel_lib().int8_basic_block(
-            x.data_ptr(), w1.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), a2.data_ptr(), b2.data_ptr(), ptr(wd), ptr(ad),
+            x.data_ptr(), t1.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+            t2.data_ptr(), a2.data_ptr(), b2.data_ptr(), ptr(td), ptr(ad),
             ptr(bd), ptr(rs), out.data_ptr(), n, h, w, cin, cout, stride,
-            frames_per_cta(h, w, stride, cin, cout),
+            plan["frames"], plan["stages"], plan["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {rc} "
+                           f"(x {tuple(x.shape)} -> {cout} channels, stride "
+                           f"{stride}, plan {plan})")
     launches[KERNEL_NAME] += 1
     return out
 
 
 def basic_block_int8(x, w1, a1, b1, w2, a2, b2, wd=None, ad=None, bd=None,
-                     res_scale=None, *, stride: int = 1) -> torch.Tensor:
+                     res_scale=None, *, stride: int = 1,
+                     tiles: tuple | None = None) -> torch.Tensor:
     """One fused int8 BasicBlock: x (N, H, W, Cin) int8 NHWC -> (N, Ho, Wo,
     Cout) int8 NHWC. w1 / w2: ``pack_conv3``; identity residual:
     ``res_scale`` = x_scale / out_scale; downsample: ``wd`` = ``pack_conv1``
-    with its folded ``ad``, ``bd``. A CUDA ``x`` launches the kernel (or
-    raises); a CPU ``x`` runs the plain version."""
+    with its folded ``ad``, ``bd``. ``tiles``: ``pack_block_tiles(w1, w2,
+    wd)`` where the caller keeps it (``fold_block`` does), else packed
+    here at every call. A CUDA ``x`` launches the kernel, or raises where
+    ``block_plan`` refuses the shape or the launch fails; a CPU ``x`` runs
+    the plain version."""
     _check(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride)
     if x.is_cuda:
-        return _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride)
+        return _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride,
+                       tiles)
     return basic_block_int8_plain(x, w1, a1, b1, w2, a2, b2, wd, ad, bd,
                                   res_scale, stride=stride)
 
@@ -235,6 +368,7 @@ def trunk_features_int8(x_q: torch.Tensor, blocks: list) -> torch.Tensor:
             f"{tuple(x_q.shape[1:])} / {widths}")
     x = x_q
     for spec, (_, stride) in zip(blocks, TRUNK_GEOM):
-        x = basic_block_int8(x, *_block_args(spec), stride=stride)
+        x = basic_block_int8(x, *_block_args(spec), stride=stride,
+                             tiles=spec.get("tiles"))
     s = x.reshape(x.shape[0], 9, 512).sum(dim=1, dtype=torch.int32)
     return s.float() * (blocks[-1]["out_scale"] / 9.0)

@@ -3,13 +3,14 @@
 Counterpart of avvad_tpu/ops/lstm_pallas.py:387 ``lstm_layer_fused`` and
 its custom VJP (``_make_lstm_vjp``). On a CUDA tensor each wrapper
 launches its hand-written kernel or raises; on a CPU tensor it runs its
-plain version, the same arithmetic in plain PyTorch. The inference and
-probe kernels (``csrc/lstm_recurrence.cu``) are one launch per time step.
-The two training kernels are one cooperative launch per layer
+plain version, the same arithmetic in plain PyTorch. The fp32-h inference
+kernel and the two training kernels are one cooperative launch per layer
 (``csrc/lstm_persistent.cu``: the weight slice stays in shared memory and
-a grid barrier separates the steps) wherever ``persistent_plan`` fits the
+grid barriers separate the steps) wherever ``persistent_plan`` fits the
 shape on the card; elsewhere they are the per-step kernels of
-``csrc/lstm_recurrence.cu`` and ``csrc/lstm_train.cu``.
+``csrc/lstm_recurrence.cu`` and ``csrc/lstm_train.cu``, one launch per
+time step, as the quantised inference kernels and the probe kernel always
+are.
 The Pallas batch padding to 8/32 rows is a TPU tiling rule: rows are
 independent, so the port runs the batch as given.
 
@@ -18,7 +19,8 @@ Kernels (see the source note in the .cu files for bounds and design):
 ===================  ==========================  ======================================
 variant              kernel                      replaces (avvad_tpu/ops/lstm_pallas.py)
 ===================  ==========================  ======================================
-"none"               ``lstm_f32h``               ``_lstm_kernel`` via ``_fwd_infer_call``
+"none_persist"       ``lstm_f32h_persist``       ``_lstm_kernel`` via ``_fwd_infer_call``
+"none"               ``lstm_f32h``               the same, per step: shapes outside the plan
 "bf16"               ``lstm_bf16h``              ``_lstm_kernel_hbf16`` via ``_fwd_quant_call``
 "int8"               ``lstm_int8``               ``_lstm_kernel_int8`` via ``_fwd_quant_call``
 "fwd_train_persist"  ``lstm_fwd_train_persist``  ``_lstm_fwd_train_kernel`` via ``_fwd_train_call``
@@ -50,7 +52,8 @@ from .qparams import weight_qparams
 STATE_QUANTS = ("none", "bf16", "int8")
 TRAIN_KERNELS = ("fwd_train_persist", "bwd_persist", "fwd_train", "bwd")
 PROBE_MODES = ("full", "h_bf16", "gates_only", "matmul_only")  # the C entry's codes
-KERNEL_NAMES = {"none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
+KERNEL_NAMES = {"none_persist": "lstm_f32h_persist",
+                "none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
                 "fwd_train_persist": "lstm_fwd_train_persist",
                 "bwd_persist": "lstm_bwd_persist",
                 "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
@@ -60,7 +63,7 @@ KERNEL_NAMES = {"none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
 # persistent kernel is one launch a layer, a per-step one T (or T + 1).
 launches = {k: 0 for k in KERNEL_NAMES}
 
-# Geometry of the persistent training kernels (csrc/lstm_persistent.cu)
+# Geometry of the persistent kernels (csrc/lstm_persistent.cu)
 PERSIST_UNITS = 16     # hidden units a CTA owns for the whole sequence
 PERSIST_ROWS = 8       # batch rows per tile; tiles are dealt to row slices
 PERSIST_CHUNK = 512    # contraction columns per chunk of the staging ring
@@ -70,6 +73,11 @@ PERSIST_STAGES = 3     # chunks in the ring
 # through shared memory once a step
 PERSIST_K_GROUPS = {"fwd_train_persist": 16, "bwd_persist": 64}
 _PERSIST_PARTIAL_ROW = {"fwd_train_persist": 80, "bwd_persist": 16}
+# where a CTA has two or more batch tiles, the inference kernel walks them
+# in pairs (16 rows), with chunks of half the length and one partial a warp;
+# where it has one, inference is the training forward without its stores
+PERSIST_INFER_CHUNK = 256
+PERSIST_INFER_K_GROUPS = 8
 # dynamic shared memory a block may opt in to on sm_90, the only target
 SMEM_LIMIT_SM90 = 232448
 
@@ -81,7 +89,7 @@ def reset_launches() -> None:
 
 def persistent_plan(b: int, h: int, sm_count: int,
                     smem_limit: int = SMEM_LIMIT_SM90) -> dict | None:
-    """The persistent training kernels' plan for a (B, ., H) layer on a
+    """The persistent kernels' plan for a (B, ., H) layer on a
     card with ``sm_count`` SMs and ``smem_limit`` bytes of shared memory a
     block, or None where the shape does not fit and the per-step kernels
     run. The grid is unit slices x row slices: CTA (x, r) owns hidden units
@@ -95,7 +103,10 @@ def persistent_plan(b: int, h: int, sm_count: int,
     132-SM H100). The row slices are as many as the card holds beside each
     other, at most one a tile.
     -> {"units", "rows", "grid": (unit slices, row slices), "smem_bytes":
-    {variant: bytes}}."""
+    {variant: bytes}, "infer": whether ``lstm_f32h_persist`` takes the shape
+    too, "infer_pairs": whether it walks batch tiles in pairs (a CTA has
+    two or more) or runs the training forward without its residual stores
+    (one tile a CTA), "infer_smem_bytes"}."""
     if b < 1 or h < 4 or h % 4:
         return None
     unit_slices = -(-h // PERSIST_UNITS)
@@ -109,14 +120,29 @@ def persistent_plan(b: int, h: int, sm_count: int,
             for v, kg in PERSIST_K_GROUPS.items()}
     if max(smem.values()) > smem_limit:
         return None
+    pairs = tiles > slices
+    pair_rows = 2 * PERSIST_ROWS
+    infer_smem = smem["fwd_train_persist"] if not pairs else (
+        128 * h + PERSIST_STAGES * pair_rows * (PERSIST_INFER_CHUNK + 8) * 4
+        + PERSIST_INFER_K_GROUPS * pair_rows * _PERSIST_PARTIAL_ROW["fwd_train_persist"] * 4
+        + state)
     return {"units": PERSIST_UNITS, "rows": PERSIST_ROWS, "grid": (unit_slices, slices),
-            "smem_bytes": smem}
+            "smem_bytes": smem, "infer": infer_smem <= smem_limit, "infer_pairs": pairs,
+            "infer_smem_bytes": infer_smem}
 
 
 def _persistent(dev: torch.device, b: int, h: int) -> bool:
     """Whether the persistent kernels take a (B, ., H) layer on this card."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return persistent_plan(b, h, sms) is not None
+
+
+def infer_variant(state_quant: str, b: int, h: int, sm_count: int) -> str:
+    """The inference kernel of ``state_quant`` for a (B, ., H) layer on a
+    card with ``sm_count`` SMs: the persistent one for "none" where
+    ``persistent_plan`` takes the shape, else the per-step ones."""
+    plan = persistent_plan(b, h, sm_count) if state_quant == "none" else None
+    return "none_persist" if plan is not None and plan["infer"] else state_quant
 
 
 def _barrier(dev: torch.device, b: int) -> torch.Tensor:
@@ -274,21 +300,47 @@ def _on_device(name: str, a: torch.Tensor, dev: torch.device) -> None:
              f"{name} must be contiguous float32 on the CUDA device {dev}")
 
 
+# cudaErrorCooperativeLaunchTooLarge: the grid cannot be resident at once
+_COOPERATIVE_TOO_LARGE = 720
+
+
+def _launch_error(variant: str, rc: int, dev: torch.device, b: int, h: int) -> str:
+    """What to tell the caller when a C entry point returned ``rc``."""
+    msg = f"{KERNEL_NAMES[variant]} launch failed: cudaError {rc}"
+    if not variant.endswith("_persist"):
+        return msg
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = persistent_plan(b, h, sms)
+    if plan is None:
+        return msg + f"; persistent_plan({b}, {h}, {sms}) refuses this shape"
+    smem = (plan["infer_smem_bytes"] if variant == "none_persist"
+            else plan["smem_bytes"][variant])
+    msg += (f"; a cooperative launch of {plan['grid'][0]} x {plan['grid'][1]} blocks of "
+            f"256 threads with {smem} bytes of shared memory each, one an SM on "
+            f"{sms} SMs, all resident at once")
+    if rc == _COOPERATIVE_TOO_LARGE:
+        msg += (": the card cannot hold the grid now, most likely because another "
+                "process or another stream's kernel occupies some of its SMs")
+    return msg
+
+
 def _run(variant: str, dev: torch.device, fn, *args) -> None:
     """Call a C entry point with the tensors' card current and the stream
-    last; raise on its CUDA error."""
+    last; raise on its CUDA error (no second route). The arguments end
+    ``B, T, H``."""
     # temporaries the caller frees live on this stream too, so the caching
     # allocator reuses their memory only after the queued launches
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):  # the C library launches on the current card
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{KERNEL_NAMES[variant]} launch failed: cudaError {rc}")
+        b, _, h = args[-3:]
+        raise RuntimeError(_launch_error(variant, rc, dev, b, h))
 
 
 def _launch(x_proj, w_hh, h0, c0, variant):
-    """Forward kernels: "none" / "bf16" / "int8" -> y; "fwd_train" and
-    "fwd_train_persist" -> (y, c_seq, gates)."""
+    """Forward kernels: "none_persist" / "none" / "bf16" / "int8" -> y;
+    "fwd_train" and "fwd_train_persist" -> (y, c_seq, gates)."""
     from ._build import kernel_lib
 
     dev = x_proj.device
@@ -302,8 +354,8 @@ def _launch(x_proj, w_hh, h0, c0, variant):
     _on_device("h0", h0, dev)
     _on_device("c0", c, dev)
     y = torch.empty(b, t, h, device=dev)
-    persist = variant == "fwd_train_persist"
-    train = persist or variant == "fwd_train"
+    persist = variant.endswith("_persist")
+    train = variant in ("fwd_train_persist", "fwd_train")
     if train:
         c_seq = torch.empty(b, t, h, device=dev)
         gates = torch.empty(b, t, h4, device=dev)
@@ -427,7 +479,9 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
                h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
                mode: str = "full") -> torch.Tensor:
     """The probe kernel: one layer's recurrence in one of ``PROBE_MODES``
-    -> y (B, T, H), as ``lstm_probe_plain``. Batch-major like the other
+    -> y (B, T, H), as ``lstm_probe_plain``. It is the per-step ``lstm_f32h``
+    / ``lstm_bf16h`` instantiation taken apart, whatever kernel
+    ``lstm_layer_fused`` routes the shape to. Batch-major like the other
     wrappers here (the TPU kernel is time-major). A CUDA ``x_proj``
     launches ``lstm_probe`` T times, counted under ``launches["probe"]``
     whatever the mode, or raises; a CPU one runs the plain version. Not
@@ -509,7 +563,9 @@ def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     per-column int8). Under autograd (grad enabled, an input requires it)
     "none" runs ``LSTMRecurrence`` (K1d forward, K1e backward) and the
     quantised variants raise NotImplementedError, as in JAX; otherwise
-    the inference kernel runs. A CUDA ``x_proj`` launches the kernels (or
+    the inference kernel runs: for "none" ``lstm_f32h_persist``, one launch
+    a layer, where ``persistent_plan`` fits the shape on the card, else the
+    per-step ``lstm_f32h``. A CUDA ``x_proj`` launches the kernels (or
     raises); a CPU ``x_proj`` runs their plain versions."""
     _check_args(x_proj, w_hh, h0, c0, state_quant)
     if torch.is_grad_enabled() and any(
@@ -521,5 +577,7 @@ def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
         h0, c0 = _initial_state(x_proj, h0, c0)
         return LSTMRecurrence.apply(x_proj, w_hh, h0, c0)
     if x_proj.is_cuda:
-        return _launch(x_proj, w_hh, h0, c0, state_quant)
+        sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
+        return _launch(x_proj, w_hh, h0, c0, infer_variant(
+            state_quant, x_proj.shape[0], x_proj.shape[2] // 4, sms))
     return lstm_layer_plain(x_proj, w_hh, h0, c0, state_quant)

@@ -3,7 +3,8 @@
 Counterpart of scripts/bench_lstm_probe.py. It splits the per-step cost of
 the LSTM recurrence kernel into its parts, on the card:
 
-  full        the shipped arithmetic (fp32 h, bf16 W_hh; ``lstm_f32h``'s)
+  full        the shipped arithmetic (fp32 h, bf16 W_hh), as the per-step
+              ``lstm_f32h`` runs it: one launch a time step
   matmul_only gate math removed (h = the i columns of the product): the
               staging of h, the contraction and the reduction
   gates_only  product removed (gates = x_proj only): launch, the sigmoid /
@@ -12,7 +13,10 @@ the LSTM recurrence kernel into its parts, on the card:
 
 then times the serving op ``lstm_layer_fused`` for state_quant none / bf16 /
 int8, and the log-power frontend on the direct route against ``hop_dft`` at
-the serving shape.
+the serving shape. The probe kernel goes on timing the per-step
+instantiation; the serving op's "none" is the persistent
+``lstm_f32h_persist`` (one launch a layer) where ``persistent_plan`` takes
+the shape, so its time beside ``full`` is what the redesign gained.
 
     python -m avvad_tpu_torch.tools.lstm_probe [--b 64] [--t 512] [--h 1024]
         [--iters 30] [--modes full,matmul_only,gates_only,h_bf16] [--device cpu]

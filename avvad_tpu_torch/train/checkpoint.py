@@ -102,6 +102,10 @@ def prune_checkpoints(model_dir: str, keep_latest: int = 1) -> int:
     return removed
 
 
+# the static-int8 tower's activation scales (models/resnet.py)
+QUANT_BUFFERS = ("q_stem", "q1", "q_out")
+
+
 def _load(path: str, device) -> dict:
     path = resolve_checkpoint(path)
     file = os.path.join(path, STATE_FILE)
@@ -128,12 +132,20 @@ def restore_checkpoint(path: str, state, with_opt: bool = True):
 def load_pretrained_trunk(path: str, model) -> None:
     """Graft the ResNet trunk (``tower.features.*``: parameters and BatchNorm
     statistics) of a ``VideoVAD`` checkpoint into ``model`` in place, the
-    reference's transfer step (train_AV_net.py:176-187). ``path``: a
-    checkpoint or a model directory (its best-vloss checkpoint)."""
+    reference's transfer step (train_AV_net.py:176-187). The int8 tower's
+    activation scales (``q_stem``, ``q1``, ``q_out``) are no part of the
+    graft on either side, as JAX leaves its ``quant`` collection alone: a
+    float trunk grafts into a ``tower_int8=True`` model, whose scales a
+    calibration sets. ``path``: a checkpoint or a model directory (its
+    best-vloss checkpoint)."""
     payload, path = _load(path, next(model.parameters()).device)
-    trunk = {k: v for k, v in payload["model"].items() if k.startswith(TRUNK_PREFIX)}
-    want = {k for k in model.state_dict() if k.startswith(TRUNK_PREFIX)}
+
+    def grafted(key: str) -> bool:
+        return key.startswith(TRUNK_PREFIX) and key.rsplit(".", 1)[-1] not in QUANT_BUFFERS
+
+    trunk = {k: v for k, v in payload["model"].items() if grafted(k)}
+    want = {k for k in model.state_dict() if grafted(k)}
     if not want or set(trunk) != want:
-        raise ValueError(f"{path}: the trunk's entries do not match the model's "
-                         f"({len(trunk)} against {len(want)})")
+        raise ValueError(f"{path}: the trunk's parameters and BatchNorm statistics do "
+                         f"not match the model's ({len(trunk)} against {len(want)})")
     model.load_state_dict(trunk, strict=False)

@@ -6,18 +6,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. card check (no CUDA device -> exit 1) and the card's name and power limit;
 2. build every kernel of avvad_tpu_torch/csrc with nvcc (sm_90a), one
    process per source;
-3. each LSTM kernel against its plain PyTorch version on the card, at the
-   main path's shape (B=64, T=512, H=1024) and a ragged one (B=3, T=7), with
-   CUDA-event times of the kernel, the plain version and one cuDNN
-   torch.nn.LSTM layer, and the bound from the shapes;
+3. each LSTM inference kernel against its plain PyTorch version on the
+   card, at the main path's shape (B=64, T=512, H=1024) and a ragged one
+   (B=3, T=7), with CUDA-event times of the kernel, the plain version and
+   one cuDNN torch.nn.LSTM layer, and the bound from the shapes. K1a
+   ("none") is the persistent lstm_f32h_persist (one cooperative launch a
+   layer) at those shapes and at a ragged one with a single batch tile a
+   CTA (B=13, T=7, H=1000), two launches agreeing bit for bit, and the
+   per-step lstm_f32h outside the plan (B=3, T=7, H=1030); the launch
+   counters show each route, and both are timed in turns at the main
+   path's shape (the per-step route forced);
 4. the int8 tower's kernels against their plain versions: the stem
    epilogue (K3) on bf16 NCHW stem output and the fused BasicBlock (K2) at
    each of the 8 trunk geometries with seeded int8 inputs and random folded
-   parameters, at the main path's frame count (64 x 246 = 15,744) and a
-   ragged one (37); CUDA-event times of kernel and plain version, bounds;
+   parameters, bit for bit at the main path's frame count (64 x 246 =
+   15,744) and a ragged one (37); CUDA-event times of kernel and plain
+   version, bounds, and one line per block with its plan, TOP/s and share
+   of the int8 peak;
 5. the full-width AV serving step with the float ResNet-18 tower (MCB 1024,
    2 x LSTM 1024, bf16 model, B=64, T=512, 30 fps unique frames) for each
-   LSTM state_quant, with launch counters read around the step, outputs
+   LSTM state_quant (2 launches of the persistent K1a with "none", 2 T
+   per-step launches with "bf16" / "int8"), with launch counters read
+   around the step, outputs
    checked, the step compared with the plain recurrence and timed, its
    stages timed by CUDA events recorded at the tower's and the LSTM stack's
    edges, and one more step under torch.profiler for the device's idle
@@ -49,8 +59,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (AudioVAD) train step at the same B, T and H: 2 persistent K1d and 2
    persistent K1e launches a step, no per-step launch; then an AudioVAD
    train step outside the plan (2 x LSTM 1030, B=4, T=64), which goes
-   through the per-step K1d and K1e (2 T and 2 (T + 1) launches);
-9. a short Trainer.fit (one epoch of 2 batches and an eval pass, K1a) of
+   through the per-step K1d and K1e (2 T and 2 (T + 1) launches), and an
+   inference pass of that model, which goes through the per-step K1a (2 T
+   launches);
+9. a short Trainer.fit (one epoch of 2 batches and an eval pass, the
+   persistent K1a) of
    the AV model with a checkpoint round trip into a temporary directory
    under build/: the restored state equals the saved one, and one more
    step from each agrees;
@@ -76,7 +89,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
     each;
-14. one {"kernels": [...]} line (13 rows), then the ok line with the device.
+14. one {"kernels": [...]} line (14 rows), then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -104,7 +117,8 @@ PEAK_NAME = {"none": "fp32 CUDA-core", "bf16": "bf16 tensor-core",
              "int8": "int8 tensor-core"}
 MEM_BW = 3.35e12
 MEM_BW_NAME = "3.35 TB/s HBM3"
-REPLACES = {"none": "avvad_tpu/ops/lstm_pallas.py:54",
+REPLACES = {"none_persist": "avvad_tpu/ops/lstm_pallas.py:54",
+            "none": "avvad_tpu/ops/lstm_pallas.py:54",
             "bf16": "avvad_tpu/ops/lstm_pallas.py:71",
             "int8": "avvad_tpu/ops/lstm_pallas.py:92"}
 # kernel vs plain over T steps (same card, same inputs). none: fp32 in
@@ -112,6 +126,15 @@ REPLACES = {"none": "avvad_tpu/ops/lstm_pallas.py:54",
 # same, plus the rare h whose fp32 noise crosses a bf16 / int8 rounding
 # boundary, which moves one gate term by one LSB of the quantised h.
 KERNEL_TOL = {"none": 1e-4, "bf16": 2e-3, "int8": 2e-3}
+# the persistent K1a against plain: fp32 in another summation order, held
+# ten times tighter at the shapes it is checked at (readings 3e-7 to 5e-7)
+PERSIST_TOL = 1e-5
+# inside the persistent plan with one batch tile a CTA, H no multiple of 16
+RAGGED_PERSIST = (13, 7, 1000)
+LSTM_SOURCES = {"none_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
+                "none": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+                "bf16": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+                "int8": "avvad_tpu_torch/csrc/lstm_recurrence.cu"}
 # a ragged frame count for the int8 tower's kernels
 N_RAGGED = 37
 # K2 / K3 against their plain versions: both compute exact int32 sums and
@@ -223,43 +246,84 @@ def bound(b: int, t: int, h: int, sq: str) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def lstm_inputs(b: int, t: int, h: int, seed: int) -> tuple:
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, t, 4 * h, generator=g).cuda(),
+            (torch.randn(h, 4 * h, generator=g) / h ** 0.5).cuda())
+
+
+def check_lstm_kernel(lstm_fused, sq: str, shape: tuple, variant: str, tol: float) -> float:
+    """One inference layer against its plain version at ``shape``; the launch
+    counters must show ``variant`` alone; a persistent launch must repeat
+    bit for bit -> max |kernel - plain|."""
+    b, t, h = shape
+    xp, w = lstm_inputs(b, t, h, seed=1)
+    lstm_fused.reset_launches()
+    y = lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in lstm_fused.launches.items() if v}
+    persist = variant.endswith("_persist")
+    if counts != {variant: 1 if persist else t}:
+        raise RuntimeError(f"{sq} B={b} T={t} H={h}: launch counts {counts}, expected "
+                           f"{variant} alone")
+    ref = lstm_fused.lstm_layer_plain(xp, w, state_quant=sq)
+    err = (y - ref).abs().max().item()
+    print(f"{lstm_fused.KERNEL_NAMES[variant]} B={b} T={t} H={h}: max|kernel-plain| "
+          f"= {err:.3e} (tol {tol:g}), launches {counts}")
+    if not (torch.isfinite(y).all() and err <= tol):
+        raise RuntimeError(f"{variant}: kernel disagrees with plain ({err})")
+    if persist and not torch.equal(lstm_fused.lstm_layer_fused(xp, w, state_quant=sq), y):
+        raise RuntimeError(f"{variant}: two launches differ")
+    return err
+
+
 def kernel_phase(lstm_fused):
+    """K1a (persistent and per-step), K1b, K1c against their plain versions,
+    with times, the cuDNN layer's time and bounds -> kernel rows."""
+    checks = {"none_persist": ("none", ((B, T, H), RAGGED, RAGGED_PERSIST), PERSIST_TOL),
+              "none": ("none", (OUT_OF_PLAN,), KERNEL_TOL["none"]),
+              "bf16": ("bf16", ((B, T, H), RAGGED), KERNEL_TOL["bf16"]),
+              "int8": ("int8", ((B, T, H), RAGGED), KERNEL_TOL["int8"])}
+    errs = {variant: [check_lstm_kernel(lstm_fused, sq, shape, variant, tol)
+                      for shape in shapes]
+            for variant, (sq, shapes, tol) in checks.items()}
+    xp, w = lstm_inputs(B, T, H, seed=2)
+    lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
+    x_in = torch.randn(B, T, H, generator=torch.Generator().manual_seed(2)).cuda()
     rows = {}
     for sq in lstm_fused.STATE_QUANTS:
-        errs = []
-        for b, t, h in ((B, T, H), RAGGED):
-            g = torch.Generator().manual_seed(1)
-            xp = torch.randn(b, t, 4 * h, generator=g).cuda()
-            w = (torch.randn(h, 4 * h, generator=g) / h ** 0.5).cuda()
-            y = lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)
-            torch.cuda.synchronize()
-            ref = lstm_fused.lstm_layer_plain(xp, w, state_quant=sq)
-            err = (y - ref).abs().max().item()
-            print(f"{lstm_fused.KERNEL_NAMES[sq]} B={b} T={t} H={h}: max|kernel-plain| "
-                  f"= {err:.3e} (tol {KERNEL_TOL[sq]:g})")
-            if not (torch.isfinite(y).all() and err <= KERNEL_TOL[sq]):
-                raise RuntimeError(f"{sq}: kernel disagrees with plain ({err})")
-            errs.append(err)
-        g = torch.Generator().manual_seed(2)
-        xp = torch.randn(B, T, 4 * H, generator=g).cuda()
-        w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).cuda()
-        ms = cuda_ms(lambda: lstm_fused.lstm_layer_fused(xp, w, state_quant=sq), 5)
+        kernel = lambda: lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)  # noqa: E731
+        if sq == "none":
+            # per step, persistent, persistent, per step: in turns on one card
+            lstm_fused.reset_launches()
+            with per_step_route(lstm_fused):
+                step_ms = [cuda_ms(kernel, 5)]
+            persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
+            with per_step_route(lstm_fused):
+                step_ms.append(cuda_ms(kernel, 5))
+            if lstm_fused.launches["none_persist"] != 12 or lstm_fused.launches["none"] != 12 * T:
+                raise RuntimeError(f"K1a: timed the wrong route: {lstm_fused.launches}")
+            with per_step_route(lstm_fused):  # the per-step kernel at the main path's shape too
+                y_step = kernel()
+            errs["none"].append((y_step - lstm_fused.lstm_layer_plain(xp, w)).abs().max().item())
+            times = {"none_persist": persist_ms, "none": step_ms}
+        else:
+            times = {sq: [cuda_ms(kernel, 5)]}
         plain_ms = cuda_ms(lambda: lstm_fused.lstm_layer_plain(xp, w, state_quant=sq), 2)
-        lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
-        x_in = torch.randn(B, T, H, generator=g).cuda()
         with torch.inference_mode():
             library_ms = cuda_ms(lambda: lstm(x_in), 5)
         bound_ms, bound_by = bound(B, T, H, sq)
-        print(f"{lstm_fused.KERNEL_NAMES[sq]}: kernel {ms:.3f} ms/layer, plain "
-              f"{plain_ms:.3f}, cuDNN LSTM layer {library_ms:.3f}, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {PEAK_NAME[sq]} peak, "
-              f"{MEM_BW / 1e12} TB/s)")
-        rows[sq] = {"name": lstm_fused.KERNEL_NAMES[sq], "route": "cuda",
-                    "source": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
-                    "replaces": REPLACES[sq], "launches": None,
-                    "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms}
+        for variant, reps in times.items():
+            print(f"{lstm_fused.KERNEL_NAMES[variant]} B={B} T={T} H={H}: kernel "
+                  f"{min(reps):.3f} ms/layer ({1e3 * min(reps) / T:.2f} us/step; reps "
+                  f"{[round(r, 3) for r in reps]}), plain {plain_ms:.3f}, cuDNN LSTM layer "
+                  f"{library_ms:.3f}, bound {bound_ms:.4f} ms ({bound_by}; {PEAK_NAME[sq]} "
+                  f"peak, {MEM_BW / 1e12} TB/s)")
+            rows[variant] = {"name": lstm_fused.KERNEL_NAMES[variant], "route": "cuda",
+                             "source": LSTM_SOURCES[variant], "replaces": REPLACES[variant],
+                             "launches": None, "max_abs_err": max(errs[variant]),
+                             "ms": min(reps), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": library_ms}
     return rows
 
 
@@ -343,26 +407,35 @@ def int8_kernel_phase(n_frames: int) -> dict:
                                                 conv_fused.TRUNK_WIDTHS)):
         spec = random_block(cin, cout, stride, 30 + i)
         args = conv_fused._block_args(spec)
+        # packed once, as the trunk's fold keeps them
+        tiles = conv_fused.pack_block_tiles(spec["w1"], spec["w2"], spec.get("wd"))
         for n in (N_RAGGED, n_frames):
             x = torch.randint(0, 128, (n, h, h, cin), generator=g, dtype=torch.int8).cuda()
-            y = conv_fused.basic_block_int8(x, *args, stride=stride)
+            y = conv_fused.basic_block_int8(x, *args, stride=stride, tiles=tiles)
             torch.cuda.synchronize()
             ref = conv_fused.basic_block_int8_plain(x, *args, stride=stride)
             lsb, share = lsb_diff(y, ref)
             del ref
             worst = max(worst, lsb)
-            if lsb > LSB_TOL or share >= FLIP_TOL:
-                raise RuntimeError(f"int8_basic_block {h}/{stride}: {lsb} LSB, {share}")
-        ms = cuda_ms(lambda: conv_fused.basic_block_int8(x, *args, stride=stride), 5)
+            if lsb or share:  # exact int32 sums, the same float32 operations
+                raise RuntimeError(f"int8_basic_block {h}/{stride} N={n}: {lsb} LSB, {share}")
+        ms = cuda_ms(lambda: conv_fused.basic_block_int8(x, *args, stride=stride,
+                                                         tiles=tiles), 5)
         plain_ms = cuda_ms(lambda: conv_fused.basic_block_int8_plain(x, *args,
                                                                      stride=stride), 1)
         ops, nbytes = k2_bound(n_frames, h, stride, cin, cout)
         t_ops, t_bytes = ops / PEAK["int8"], nbytes / MEM_BW
+        plan = conv_fused.block_plan(h, h, stride, cin, cout, n_frames=n_frames)
         print(f"int8_basic_block {h}x{h}/{stride} {cin}->{cout} N={n_frames}: "
-              f"max {lsb} LSB, {share:.2e} differ (also N={N_RAGGED}); kernel "
+              f"bit-identical to plain (also N={N_RAGGED}); kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f}, bound {1e3 * max(t_ops, t_bytes):.4f} "
               f"ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
-              f"{ops / ms / 1e9:.1f} TOP/s")
+              f"{ops / ms / 1e9:.1f} TOP/s = {ops / (ms * 1e-3) / PEAK['int8']:.3f} of the "
+              f"int8 peak, {ms * 1e6 / (ops / 2 / 1e6):.3f} ns a M MAC; plan: "
+              f"{plan['frames']} frames = {plan['rows']} rows a CTA, {plan['m_tiles']} m64 "
+              f"tiles in {plan['passes']} passes, {plan['n_tiles']} n{plan['n_tile']} tiles, "
+              f"ring {plan['stages']} x {plan['chunk_bytes']} B, {plan['smem_bytes']} B "
+              f"shared")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += 1e3 * max(t_ops, t_bytes)
@@ -477,8 +550,13 @@ def time_step(fn, model, wave, video, label: str, tail: str) -> None:
                       **profile_step(fn, wave, video)}))
 
 
+def serving_launches(sq: str) -> dict:
+    """LSTM launches of one serving step (two layers): the persistent K1a
+    once a layer, the quantised per-step kernels T times."""
+    return {"none_persist": 2} if sq == "none" else {sq: 2 * T}
+
+
 def main_path(lstm_fused, rows):
-    import avvad_tpu_torch.models.lstm as lstm_mod
     from avvad_tpu_torch.export import make_waveform_serving_fn
     from avvad_tpu_torch.models import AVVAD
     from avvad_tpu_torch.ops import conv_fused, stem_fused
@@ -497,20 +575,18 @@ def main_path(lstm_fused, rows):
         probs = fn(wave, video)
         torch.cuda.synchronize()
         counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
-        expect = {k: (2 * T if k == sq else 0) for k in counts}
+        expect = {**dict.fromkeys(counts, 0), **serving_launches(sq)}
         if counts != expect:
             raise RuntimeError(f"{sq}: launch counts {counts}, expected {expect}")
-        rows[sq]["launches"] = counts[sq]
+        variant = next(iter(serving_launches(sq)))
+        rows[variant]["launches"] = counts[variant]
         check_probs(probs, sq)
-        lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_plain
-        try:
+        with plain_inference(lstm_fused):
             ref = fn(wave, video)
-        finally:
-            lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_fused
         err = (probs - ref).abs().max().item()
         if err > PROB_TOL:
             raise RuntimeError(f"{sq}: serving step vs plain LSTM {err}")
-        time_step(fn, model, wave, video, sq, f"launches {counts[sq]}, "
+        time_step(fn, model, wave, video, sq, f"launches {counts[variant]} {variant}, "
                   f"max|probs-plain| {err:.2e} (tol {PROB_TOL:g})")
     return model
 
@@ -544,8 +620,8 @@ def int8_path(rows):
         probs = fn(wave, video)
         torch.cuda.synchronize()
         counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
-        expect = {k: (2 * T if k == sq else 0) for k in lstm_fused.launches}
-        expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1})
+        expect = {**dict.fromkeys(lstm_fused.launches, 0), **serving_launches(sq),
+                  conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1}
         if counts != expect:
             raise RuntimeError(f"int8 tower {sq}: launch counts {counts}, "
                                f"expected {expect}")
@@ -600,15 +676,28 @@ def plain_recurrence(lstm_fused):
 
 
 @contextlib.contextmanager
-def per_step_route(lstm_fused):
-    """The wrappers with the persistent plan refused: the per-step K1d /
-    K1e at a shape the plan would take, to time both on the same inputs."""
-    saved = lstm_fused._persistent
-    lstm_fused._persistent = lambda *_: False
+def plain_inference(lstm_fused):
+    """The models' LSTM layers with the plain inference recurrence."""
+    import avvad_tpu_torch.models.lstm as lstm_mod
+
+    lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_plain
     try:
         yield
     finally:
-        lstm_fused._persistent = saved
+        lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_fused
+
+
+@contextlib.contextmanager
+def per_step_route(lstm_fused):
+    """The wrappers with the persistent plan refused: the per-step K1a /
+    K1d / K1e at a shape the plan would take, to time both on the same
+    inputs."""
+    saved = lstm_fused.persistent_plan
+    lstm_fused.persistent_plan = lambda *_a, **_k: None
+    try:
+        yield
+    finally:
+        lstm_fused.persistent_plan = saved
 
 
 def train_inputs(b: int, t: int, h: int, seed: int) -> tuple:
@@ -788,7 +877,8 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     their plan through the per-step ones."""
     from avvad_tpu_torch.models import AVVAD, AudioVAD
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
-    from avvad_tpu_torch.train import create_train_state, make_train_step
+    from avvad_tpu_torch.train import (create_train_state, make_predict_step,
+                                       make_train_step)
 
     av = modality == "av"
     model = (AVVAD(lstm_hidden_size=h, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
@@ -834,7 +924,8 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     del ref_state, reference, ref_grads
     torch.cuda.empty_cache()
     print(f"train {modality}: launches {counts[fwd]} K1d ({lstm_fused.KERNEL_NAMES[fwd]}), "
-          f"{counts[bwd]} K1e ({lstm_fused.KERNEL_NAMES[bwd]}), {counts['none']} K1a; "
+          f"{counts[bwd]} K1e ({lstm_fused.KERNEL_NAMES[bwd]}), "
+          f"{counts['none'] + counts['none_persist']} K1a; "
           f"metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
           f"against the plain recurrence: grads rel {grad_err:.3e} (tol "
           f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors, loss rel {loss_err:.3e} "
@@ -856,6 +947,20 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     print(json.dumps({"profile": f"train/{modality}" + ("" if persist else "/out_of_plan"),
                       "stage_ms": stage_ms,
                       **profile_step(step, state, batch)}))
+    if not persist:
+        # the same model in inference: outside the plan K1a is the per-step kernel
+        predict = make_predict_step(modality)
+        lstm_fused.reset_launches()
+        probs = predict(state, batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        with plain_inference(lstm_fused):
+            err = (probs - predict(state, batch)).abs().max().item()
+        print(f"inference {modality} outside the plan: launches {counts}, max|probs-plain| "
+              f"{err:.2e} (tol {PROB_TOL:g})")
+        if counts != {"none": 2 * t} or not err <= PROB_TOL:
+            raise RuntimeError(f"inference outside the plan: launches {counts}, err {err}")
+        rows["none"]["launches"] = counts["none"]
     return state
 
 
@@ -880,8 +985,8 @@ def trainer_phase(state) -> None:
         counts = dict(lstm_fused.launches)
         expect = {k: 0 for k in counts}
         # 2 train batches x 2 layers, one persistent launch each way; the
-        # eval pass runs K1a
-        expect.update(fwd_train_persist=2 * 2, bwd_persist=2 * 2, none=2 * t)
+        # eval pass runs the persistent K1a, one launch a layer
+        expect.update(fwd_train_persist=2 * 2, bwd_persist=2 * 2, none_persist=2)
         if counts != expect:
             raise RuntimeError(f"Trainer.fit: launch counts {counts}, expected {expect}")
         logs = {name: (Path(model_dir) / name).read_text().splitlines()
@@ -983,8 +1088,8 @@ def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
     # each timing is a warm-up and `iters` calls; "full" and "h_bf16" are
     # run once more each for their difference
     expect = {k: 0 for k in counts}
-    expect.update(probe=T * (4 * (iters + 1) + 2),
-                  **{sq: T * (iters + 1) for sq in lstm_fused.STATE_QUANTS})
+    expect.update(probe=T * (4 * (iters + 1) + 2), none_persist=iters + 1,
+                  bf16=T * (iters + 1), int8=T * (iters + 1))
     if counts != expect:
         raise RuntimeError(f"probe tool: launch counts {counts}, expected {expect}")
     for mode, n in res["probe_launches"].items():
@@ -1276,7 +1381,7 @@ def main() -> None:
     frontend_phase()
     streaming_phase(float_model, int8_model)
     print(json.dumps({"kernels": [rows[k] for k in (
-        *lstm_fused.STATE_QUANTS, *lstm_fused.TRAIN_KERNELS, "k2", "k3",
+        "none_persist", *lstm_fused.STATE_QUANTS, *lstm_fused.TRAIN_KERNELS, "k2", "k3",
         *(f"probe/{m}" for m in lstm_fused.PROBE_MODES))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,21 +29,55 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024)])
+# (3, 7, 1030) and (40, 5, 1100) are outside the persistent plan (rows not
+# 16-byte; a 137.5 KB weight slice beside the state of 5 tiles): the per-step K1a. (13, 7, 1000) has one
+# batch tile a CTA, (64, 16, 1024) and (40, 9, 1024) pairs of tiles, the
+# second with a tile alone at the end
+@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024), (3, 7, 1030),
+                                     (13, 7, 1000), (40, 9, 1024), (40, 5, 1100)])
 @pytest.mark.parametrize("state_quant", ["none", "bf16", "int8"])
 def test_kernel_matches_plain(cuda, state_quant, b, t, h):
+    """Each inference kernel against its plain version; the launch counts
+    follow the route: one launch of ``lstm_f32h_persist`` where the plan
+    takes a "none" layer, else T launches of the per-step kernel."""
+    if state_quant == "int8" and h % 4:
+        h += 2  # the int8 kernel packs four k into a word
     g = torch.Generator().manual_seed(0)
     xp = torch.randn(b, t, 4 * h, generator=g).to(cuda)
     w = (torch.randn(h, 4 * h, generator=g) / h ** 0.5).to(cuda)
     h0 = torch.tanh(torch.randn(b, h, generator=g)).to(cuda)
     c0 = torch.randn(b, h, generator=g).to(cuda)
-    before = lstm_fused.launches[state_quant]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variant = lstm_fused.infer_variant(state_quant, b, h, sms)
+    lstm_fused.reset_launches()
     y = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
     torch.cuda.synchronize()
-    assert lstm_fused.launches[state_quant] - before == t
+    expect = dict.fromkeys(lstm_fused.launches, 0)
+    expect[variant] = 1 if variant == "none_persist" else t
+    assert lstm_fused.launches == expect
     ref = lstm_fused.lstm_layer_plain(xp, w, h0, c0, state_quant=state_quant)
     assert y.shape == (b, t, h) and torch.isfinite(y).all()
     assert (y - ref).abs().max().item() < ATOL[state_quant]
+    if variant == "none_persist":  # partials summed in a fixed order
+        assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0), y)
+
+
+def test_inference_route_on_this_card(cuda):
+    """The serving shape goes through the persistent kernel on a card with
+    64 or more SMs; with the plan refused the per-step kernel gives the same
+    function."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (lstm_fused.infer_variant("none", 64, 1024, sms) == "none_persist") == (sms >= 64)
+    xp, w, h0, c0 = _train_inputs(40, 6, 1024, cuda, seed=9)
+    y = lstm_fused.lstm_layer_fused(xp, w, h0, c0)
+    plan, lstm_fused.persistent_plan = lstm_fused.persistent_plan, lambda *_a, **_k: None
+    try:
+        lstm_fused.reset_launches()
+        per_step = lstm_fused.lstm_layer_fused(xp, w, h0, c0)
+        assert lstm_fused.launches["none"] == 6 and not lstm_fused.launches["none_persist"]
+    finally:
+        lstm_fused.persistent_plan = plan
+    assert (y - per_step).abs().max().item() < ATOL["none"]
 
 
 @pytest.mark.parametrize("state_quant", ["none", "int8"])
@@ -130,6 +164,51 @@ def test_int8_basic_block_matches_plain(cuda, geom):
     assert y.shape == ref.shape == (37, ho, ho, cout)
     assert ref.float().std() > 10  # the test spreads over the int8 range
     torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n, h, w, stride, cin, cout, down", [
+    (21, 7, 5, 2, 32, 96, True),     # n tiles of 32, odd H x W, stride 2
+    (50, 6, 6, 1, 96, 96, False),    # identity at a width no trunk block has
+    (9, 5, 4, 1, 64, 64, True),      # a 1x1 shortcut that keeps the shape
+    (300, 3, 3, 1, 64, 192, True),   # n tiles of 64, several CTAs of several passes
+    (2, 20, 12, 1, 32, 32, False)])  # few frames: a CTA a frame
+def test_int8_basic_block_off_the_trunk(cuda, n, h, w, stride, cin, cout, down):
+    """Shapes outside the trunk run the same kernel, bit-identical to the
+    plain version, with the tiles packed by the wrapper."""
+    spec = random_block(cin, cout, stride, n, cuda)
+    if down and "wd" not in spec:
+        extra = random_block(cin, 2 * cout, stride, n + 1, cuda)
+        spec.update(wd=extra["wd"][:cout].contiguous(), ad=extra["ad"][:cout].contiguous(),
+                    bd=extra["bd"][:cout].contiguous())
+        del spec["res_scale"]
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-127, 128, (n, h, w, cin), generator=g, dtype=torch.int8).to(cuda)
+    y = _block(conv_fused.basic_block_int8, x, spec, stride)
+    torch.cuda.synchronize()
+    ref = _block(conv_fused.basic_block_int8_plain, x, spec, stride)
+    assert y.shape == ref.shape and ref.float().std() > 10
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    tiles = conv_fused.pack_block_tiles(spec["w1"], spec["w2"], spec.get("wd"))
+    again = conv_fused.basic_block_int8(x, *conv_fused._block_args(spec), stride=stride,
+                                        tiles=tiles)
+    torch.testing.assert_close(again, ref, rtol=0, atol=0)
+
+
+def test_int8_basic_block_refuses_what_the_plan_refuses(cuda):
+    """A frame whose tiles exceed the shared memory raises with the plan's
+    reason; tiles of another weight's shape raise too. Nothing is launched."""
+    spec = random_block(64, 64, 1, 0, cuda)
+    before = conv_fused.launches["int8_basic_block"]
+    with pytest.raises(ValueError, match="shared memory"):
+        _block(conv_fused.basic_block_int8,
+               torch.zeros(1, 64, 64, 64, dtype=torch.int8, device=cuda), spec, 1)
+    other = random_block(64, 128, 1, 1, cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        conv_fused.basic_block_int8(
+            torch.zeros(2, 5, 5, 64, dtype=torch.int8, device=cuda),
+            *conv_fused._block_args(spec), stride=1,
+            tiles=conv_fused.pack_block_tiles(other["w1"], other["w2"], other["wd"]))
+    assert conv_fused.launches["int8_basic_block"] == before
 
 
 def test_int8_trunk_kernels_match_plain(cuda):

@@ -1,4 +1,4 @@
-"""The persistent training kernels' plan, bindings and tiling, on the CPU.
+"""The persistent LSTM kernels' plan, bindings and tiling, on the CPU.
 
 ``csrc/lstm_persistent.cu`` runs only on a card. What the CPU can hold:
 the pure-Python plan that routes a shape to the persistent or the
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from avvad_tpu.ops.lstm_pallas import _bwd_call, _fwd_train_call
+from avvad_tpu.ops.lstm_pallas import _bwd_call, _fwd_infer_call, _fwd_train_call
 from avvad_tpu_torch.ops import _build, lstm_fused
 
 # fp32 recurrences in another summation order: a few ulp of unit-scale values
@@ -95,6 +95,50 @@ def test_plan_shrinks_with_the_shared_memory_and_the_card():
     assert lstm_fused.persistent_plan(16, 512, 132, smem_limit=166912) is not None
 
 
+# --- the inference route ---
+
+
+@pytest.mark.parametrize("sm_count", [132, 108, 46, 12])
+@pytest.mark.parametrize("h", [32, 100, 128, 1024, 1030, 1096, 1100, 1280])
+@pytest.mark.parametrize("b", [1, 3, 16, 19, 64, 400])
+def test_inference_route_follows_the_plan(b, h, sm_count):
+    """``lstm_layer_fused`` launches ``lstm_f32h_persist`` for "none" exactly
+    where the plan takes the shape and the inference kernel's shared memory
+    fits too; the quantised variants stay per step."""
+    plan = lstm_fused.persistent_plan(b, h, sm_count)
+    got = lstm_fused.infer_variant("none", b, h, sm_count)
+    assert got == ("none_persist" if plan is not None and plan["infer"] else "none")
+    assert lstm_fused.infer_variant("bf16", b, h, sm_count) == "bf16"
+    assert lstm_fused.infer_variant("int8", b, h, sm_count) == "int8"
+    if plan is None:
+        return
+    gx, gy = plan["grid"]
+    tiles = -(-b // plan["rows"])
+    # pairs of batch tiles exactly where a CTA walks two or more
+    assert plan["infer_pairs"] == (tiles > gy)
+    state = -(-tiles // gy) * plan["rows"] * plan["units"] * 4
+    want = plan["smem_bytes"][FWD] if not plan["infer_pairs"] else (
+        128 * h + 3 * 16 * (256 + 8) * 4 + 8 * 16 * 80 * 4 + state)
+    assert plan["infer_smem_bytes"] == want
+    assert plan["infer"] == (want <= lstm_fused.SMEM_LIMIT_SM90)
+
+
+def test_inference_plan_for_the_serving_shape_on_an_h100():
+    plan = lstm_fused.persistent_plan(64, 1024, H100_SMS)
+    assert plan["grid"] == (64, 2) and plan["infer"] and plan["infer_pairs"]
+    assert plan["infer_smem_bytes"] == 224768  # 4 batch tiles a CTA, in two pairs
+    assert lstm_fused.infer_variant("none", 64, 1024, H100_SMS) == "none_persist"
+    # outside the plan: the per-step kernel
+    assert lstm_fused.infer_variant("none", 3, 1030, H100_SMS) == "none"
+    assert lstm_fused.infer_variant("none", 64, 2048, H100_SMS) == "none"
+    # the pairs' ring is 768 bytes larger than the training forward's: at the
+    # edge of the shared memory the plan takes a shape for training alone
+    edge = lstm_fused.persistent_plan(16, 1096, H100_SMS)
+    assert edge is not None and edge["infer_pairs"] and not edge["infer"]
+    assert lstm_fused.infer_variant("none", 16, 1096, H100_SMS) == "none"
+    assert lstm_fused.infer_variant("none", 16, 1092, H100_SMS) == "none_persist"
+
+
 # --- the bindings ---
 
 
@@ -110,7 +154,7 @@ def _c_entries():
 def test_signatures_name_every_c_entry():
     entries = _c_entries()
     assert {"lstm_fwd_train_persist", "lstm_bwd_persist", "lstm_fwd_train_f32h",
-            "lstm_bwd_f32h"} <= set(entries)
+            "lstm_bwd_f32h", "lstm_f32h_persist", "int8_basic_block"} <= set(entries)
     assert set(_build.SIGNATURES) == set(entries)
 
 
@@ -142,6 +186,14 @@ def test_source_constants_match_the_plan():
     assert lstm_fused.PERSIST_K_GROUPS == {FWD: warps * 16 // 8, BWD: warps * 16 // 2}
     # a chunk holds a whole number of rounds of the k-groups
     assert all(const["KC"] // 4 % kg == 0 for kg in lstm_fused.PERSIST_K_GROUPS.values())
+    # the inference kernel: pairs of tiles, shorter chunks, a partial a warp
+    assert const["KCI"] == lstm_fused.PERSIST_INFER_CHUNK
+    assert "constexpr int PAIR = 2 * BT;" in src and "constexpr int KG_I = NWARP;" in src
+    assert warps == lstm_fused.PERSIST_INFER_K_GROUPS
+    assert const["KCI"] // 4 % (2 * warps) == 0
+    # one launch: the weight slice is loaded before the time loop, once
+    infer = src[src.index("lstm_infer_persist_kernel("):src.index("// Backward: CTA")]
+    assert infer.index("wsm + (size_t)slot") < infer.index("for (int t = 0; t < T; ++t)")
 
 
 # --- the tiling, emulated ---
@@ -191,6 +243,47 @@ def fwd_train_tiled(xp, w, h0, c0, sm_count=H100_SMS):
         # y[:, step] once every CTA has done its step
         y[:, step] = gates[:, step, 3 * h:] * torch.tanh(c_seq[:, step])
     return y, c_seq, gates
+
+
+def _contract_pairs(a, w):
+    """a (16 rows, K) . w (K, cols) as the inference kernel sums it: 16
+    k-groups by the group of four k, the two of a warp added (a shuffle),
+    the 8 warps' partials summed in order by the cell's owner."""
+    group = (torch.arange(a.shape[1]) // 4) % 16
+    partial = [a[:, group == q] @ w[group == q] for q in range(16)]
+    warps = [partial[2 * v] + partial[2 * v + 1] for v in range(8)]
+    return sum(warps[1:], warps[0])
+
+
+def infer_tiled(xp, w, h0, c0, sm_count=H100_SMS):
+    """``lstm_f32h_persist``'s tiling in plain PyTorch: a CTA walks its batch
+    tiles in pairs where it has two or more (a last one alone), else it is
+    the training forward without its residuals; a barrier a step."""
+    b, t, h4 = xp.shape
+    h = h4 // 4
+    plan = lstm_fused.persistent_plan(b, h, sm_count)
+    assert plan["infer"]
+    wd = lstm_fused._bf16_rounded(w)
+    y, c = torch.empty(b, t, h), c0.clone()
+    for step in range(t):
+        h_in = h0 if step == 0 else y[:, step - 1]  # the exchange
+        h_out = torch.empty(b, h)
+        for j, tiles in _ctas(plan, b, h):
+            cols = torch.cat([g * h + j for g in range(4)])
+            groups = ([tiles[i:i + 2] for i in range(0, len(tiles), 2)]
+                      if plan["infer_pairs"] else [[tile] for tile in tiles])
+            for group in groups:
+                rows = torch.cat([torch.arange(r.start, r.stop) for r in group])
+                rec = (_contract_pairs(h_in[rows], wd[:, cols]) if plan["infer_pairs"] else
+                       _contract(h_in[rows], wd[:, cols],
+                                 lstm_fused.PERSIST_K_GROUPS[FWD], chains=1))
+                i, f, g, o = (xp[rows, step][:, cols] + rec).split(len(j), dim=-1)
+                i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+                cn = f * c[rows][:, j] + i * g
+                c[rows[:, None], j[None]] = cn
+                h_out[rows[:, None], j[None]] = o * torch.tanh(cn)
+        y[:, step] = h_out  # read only after every CTA has done its step
+    return y
 
 
 def bwd_tiled(dy, gates, c_seq, c_prev, w):
@@ -298,6 +391,43 @@ def test_tiled_kernels_match_pallas(b, t, h):
     np.testing.assert_allclose(dc0.numpy(), np.asarray(dc0_j), atol=ATOL_F32)
 
 
+# (b, t, h, SMs): one tile a CTA; 7 tiles on 3 row slices (pairs and a tile
+# alone); 8 tiles on 2 row slices (4 tiles a CTA, two pairs); a ragged last
+# tile in a pair; H no multiple of the 16 units or of the 256-column chunk
+INFER_SHAPES = [(3, 7, 32, 132), (50, 3, 64, 12), (64, 3, 128, 16), (19, 4, 36, 3),
+                (13, 5, 100, 7), (40, 2, 96, 12)]
+
+
+@pytest.mark.parametrize("b, t, h, sm_count", INFER_SHAPES)
+def test_tiled_inference_matches_plain(b, t, h, sm_count):
+    xp, w, h0, c0, _ = _inputs(b, t, h, seed=5)
+    plan = lstm_fused.persistent_plan(b, h, sm_count)
+    assert plan["infer_pairs"] == (b > 8 * plan["grid"][1])
+    got = infer_tiled(xp, w, h0, c0, sm_count)
+    ref = lstm_fused.lstm_layer_plain(xp, w, h0, c0)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL_F32)
+
+
+def test_tiled_inference_has_four_tiles_a_cta_at_the_serving_batch():
+    plan = lstm_fused.persistent_plan(64, 128, 16)
+    assert plan["grid"] == (8, 2) and plan["infer_pairs"]
+    assert [len(tiles) for _, tiles in _ctas(plan, 64, 128)] == [4] * 16
+
+
+@pytest.mark.parametrize("b, t, h, sm_count", [(3, 7, 32, 132), (50, 3, 64, 12),
+                                               (64, 3, 128, 16), (19, 4, 36, 3)])
+def test_tiled_inference_matches_pallas(b, t, h, sm_count):
+    """The emulated inference kernel against the Pallas ``_fwd_infer_call``
+    in interpret mode (time-major, bf16 weight), from a nonzero state."""
+    xp, w, h0, c0, _ = _inputs(b, t, h, seed=6)
+    y_j = _fwd_infer_call(jnp.asarray(_tm(xp)), jnp.asarray(w.numpy()),
+                          jnp.asarray(h0.numpy()), jnp.asarray(c0.numpy()),
+                          interpret=True, w_dtype=jnp.bfloat16)
+    got = infer_tiled(xp, w, h0, c0, sm_count)
+    np.testing.assert_allclose(got.numpy(), _tm(y_j), atol=ATOL_F32)
+
+
 def test_contract_covers_every_k_once():
     """The k-groups partition k: with unit weights every group of four k
     lands in exactly one partial."""
@@ -305,6 +435,7 @@ def test_contract_covers_every_k_once():
         a = torch.arange(k, dtype=torch.float32)[None]
         got = _contract(a, torch.ones(k, 1), kg, chains=4 if kg == 64 else 1)
         assert got.item() == k * (k - 1) / 2
+        assert _contract_pairs(a, torch.ones(k, 1)).item() == k * (k - 1) / 2
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -317,4 +448,6 @@ def test_cpu_tensors_take_the_plain_versions():
     got = lstm_fused.lstm_bwd(dy, got[2], got[1], c_prev, w)
     ref = lstm_fused.lstm_bwd_plain(dy, ref[2], ref[1], c_prev, w)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
+    assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0),
+                       lstm_fused.lstm_layer_plain(xp, w, h0, c0))
     assert lstm_fused.launches == before  # CPU tensors launch nothing

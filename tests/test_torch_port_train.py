@@ -611,6 +611,43 @@ def test_load_pretrained_trunk_grafts_video_vad_trunk(tmp_path):
                                                            lstm_layers=1))
 
 
+def test_load_pretrained_trunk_into_int8_tower_leaves_scales_alone(tmp_path):
+    """A float VideoVAD trunk grafts into an AVVAD built with
+    ``tower_int8=True``: parameters and BatchNorm statistics land, the
+    ``q_stem`` / ``q1`` / ``q_out`` scale buffers, which the checkpoint does
+    not hold, stay as they were (JAX grafts ``params`` and ``batch_stats``
+    and leaves ``quant`` alone, avvad_tpu/train/checkpoint.py:205-233); a
+    trunk whose parameter keys differ still raises."""
+    video = VideoVAD(lstm_hidden_size=8, lstm_layers=1, seed=1)
+    vstate = create_train_state(video, device="cpu")
+    with torch.no_grad():
+        video.tower.features.layer2_0.bn2.running_mean.uniform_(-1.0, 1.0)
+    ckpt.save_checkpoint(str(tmp_path), vstate, epoch=1, valid_loss=0.3)
+    av = AVVAD(lstm_hidden_size=8, lstm_layers=1, mcb_output_size=32, seed=2,
+               tower_int8=True)
+    scales = [k for k in av.state_dict() if k.split(".")[-1] in ("q_stem", "q1", "q_out")]
+    assert len(scales) == 17
+    with torch.no_grad():  # as a calibration leaves them
+        for i, k in enumerate(scales):
+            av.state_dict()[k].fill_(1.0 + i)
+    before = _params(av)
+    ckpt.load_pretrained_trunk(str(tmp_path), av)
+    src = video.state_dict()
+    grafted = 0
+    for k, v in av.state_dict().items():
+        if k.startswith("tower.features.") and k not in scales:
+            torch.testing.assert_close(v, src[k], rtol=0, atol=0)
+            grafted += 1
+        else:
+            torch.testing.assert_close(v, before[k], rtol=0, atol=0)
+    assert grafted == len([k for k in src if k.startswith("tower.features.")])
+    narrow = AVVAD(lstm_hidden_size=8, lstm_layers=1, mcb_output_size=32, tower_int8=True)
+    del narrow.tower.features.layer4_1  # a trunk with other parameter keys
+    narrow.tower.features.block_names.remove("layer4_1")
+    with pytest.raises(ValueError):
+        ckpt.load_pretrained_trunk(str(tmp_path), narrow)
+
+
 def test_dropout_is_not_ported():
     with pytest.raises(NotImplementedError):
         AudioVAD(lstm_hidden_size=8, lstm_layers=1, dropout_rate=0.5)
