@@ -1,7 +1,9 @@
-// The fp32-h inference recurrence and the two training recurrences of one
-// LSTM layer as persistent, weight-stationary kernels for Hopper (sm_90a):
-// ONE cooperative launch per layer and sequence; the time loop runs inside
-// the kernel.
+// The three inference recurrences (fp32, bf16 and int8 h) and the two
+// training recurrences of one LSTM layer as persistent, weight-stationary
+// kernels for Hopper (sm_90a): ONE cooperative launch per layer and
+// sequence; the time loop runs inside the kernel. The quantised-state
+// kernels (lstm_bf16h_persist, lstm_int8_persist) are described where they
+// begin, below lstm_infer_persist_kernel.
 //
 // Replaces, at the shapes the plan takes (H % 4 == 0, ceil(H / 16) CTAs
 // co-resident, one an SM, and their shared memory within the limit: H <= 1100
@@ -9,11 +11,13 @@
 //   lstm_f32h_persist      <- _lstm_kernel (:54) via _fwd_infer_call (:185)
 //   lstm_fwd_train_persist <- _lstm_fwd_train_kernel (:116) via _fwd_train_call (:279)
 //   lstm_bwd_persist       <- _lstm_bwd_kernel (:138) via _bwd_call (:314)
+//   lstm_bf16h_persist     <- _lstm_kernel_hbf16 (:71) via _fwd_quant_call (:232)
+//   lstm_int8_persist      <- _lstm_kernel_int8 (:92) via _fwd_quant_call (:232)
 // The Pallas kernels carry h, c, dh and dc in scratch across a sequential
 // grid; here a CTA carries them across a loop. Outside the plan the wrapper
-// routes to the per-step kernels lstm_f32h, lstm_fwd_train_f32h
-// (lstm_recurrence.cu) and lstm_bwd_f32h (lstm_train.cu), which compute the
-// same functions.
+// routes to the per-step kernels lstm_f32h, lstm_bf16h, lstm_int8,
+// lstm_fwd_train_f32h (lstm_recurrence.cu) and lstm_bwd_f32h
+// (lstm_train.cu), which compute the same functions.
 //
 // What they compute (the arithmetic and its order are the per-step
 // kernels'): per forward step  gates = xp[:, t] + h_{t-1} . W_hh  (order
@@ -92,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int U = 16;       // hidden units per CTA
@@ -121,7 +127,7 @@ __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
@@ -590,6 +596,351 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// The quantised-state inference recurrences on the tensor cores:
+//   lstm_bf16h_persist <- _lstm_kernel_hbf16 (:71) via _fwd_quant_call (:232)
+//   lstm_int8_persist  <- _lstm_kernel_int8 (:92) via _fwd_quant_call (:232)
+// The per-step lstm_bf16h / lstm_int8 (lstm_recurrence.cu) compute the same
+// functions outside the plan. Numerics: bf16 h = __float2bfloat16_rn(h) times
+// the bf16 W, exact products summed in fp32 by mma; int8 qh =
+// __float2int_rn(h * 127) times Wq, exact int32 sums, gates = x + f32(acc) *
+// ws. The int8 kernel equals the per-step one and the plain version bit for
+// bit; the bf16 one differs by the tensor cores' fp32 accumulation order.
+//
+// What bounds them at B=64, T=512, H=1024: 2*B*T*H*4H = 275 G operations,
+// 0.28 ms at the bf16 and 0.14 ms at the int8 tensor-core peak, against 0.2
+// ms of bytes; and the T-long chain of steps, each a barrier round (about
+// 1.3 us alone on an H100, tools/lstm_step_split.py: a 0.7 ms floor a
+// layer). A CTA's product is 32 rows x 64 columns (int8: 16 x 128) x 1024 k a
+// step, under a microsecond on one SM's tensor cores, so the chain sets the
+// step: the barrier, the
+// exchange's way back from L2, the product, the gate math, the fence. The
+// frame is lstm_infer_persist_kernel's (weight slice resident, c in shared
+// memory, a barrier per row slice and step); what changes:
+//  - The product is mma.sync m16n8k16 bf16 (m16n8k32 s8) with fragments from
+//    ldmatrix. In bytes the two are one code: a k step is 32 bytes of a row
+//    (16 bf16 or 32 int8). The weight slice is stored [column][k], k
+//    contiguous, rows padded by 16 bytes so that ldmatrix is conflict-free;
+//    the K tail (H * element size up to a multiple of 32 bytes) is zero.
+//  - The exchange carries the quantised h, not y: the cell's owner writes y
+//    (fp32, the output) and the rounded h into a buffer of 2 x B rows of the
+//    padded length, by step parity (a CTA that runs ahead writes h_t while a
+//    slower one still reads h_{t-1}; a single buffer would race). Rounding
+//    once at the writer equals rounding at every reader. A row is 2 KB (bf16)
+//    or 1 KB (int8) at H=1024, against 4 KB of fp32: a CTA of the serving
+//    plan pulls 64 KB (bf16, 32 rows) or 16 KB (int8, 16 rows) a step
+//    through L2 where K1a pulls 128 KB.
+//  - A CTA owns UQ units: 16 for bf16 (64 columns, a 129 KB slice at
+//    H=1024, the grid of the other kernels: 64 x 2 at B=64), 32 for int8
+//    (128 columns of half the bytes, the same 129 KB; 32 x 4 CTAs at B=64,
+//    so a CTA pulls 16 rows where it would pull 32: faster than 16 units,
+//    tools/lstm_step_split.py times both). A CTA walks its batch tiles in
+//    groups of 512 / UQ rows (two cells a thread); the 8 warps split a
+//    group's product into 32-column groups x k-groups (k step q of every
+//    KG), 8 (bf16) or 4 (int8) mma a k step each, and the k-groups' partials
+//    are summed by the cell's owner in a fixed order (two launches agree bit
+//    for bit).
+//    The chunks of a group stream through a ring of four 512-byte chunks a
+//    row, three ahead of the mma, read with cp.async.cg as in K1a; between
+//    a group's last chunk and the next group the ring holds the partials.
+//  - h0 is rounded into the buffer by the cells' owners before the first
+//    step, behind one more barrier round.
+// Tried on the card and dropped: rings of 3 chunks or of 256-byte chunks
+// (tools/lstm_step_split.py times them); a chunk's fragments all loaded
+// before its mma (slower), y stored after the barrier's arrival and a deeper
+// unroll (within the calls' spread). The first build indexed the
+// accumulators at run time when it stored the partials: 128 bytes of stack,
+// and a third slower.
+
+constexpr int UQ_BF16 = 16;               // hidden units a CTA owns: bf16 kernel
+constexpr int UQ_INT8 = 32;               // int8 kernel: half the bytes a column
+constexpr int KCB = 512;                  // bytes of a row per ring chunk
+constexpr int ARS = KCB + 16;             // bytes between the rows of a chunk
+constexpr int QSTAGE = 4;                 // ring chunks
+constexpr int QAHEAD = QSTAGE - 1;        // chunks in flight ahead of the mma
+
+// Geometry of a quantised kernel whose CTA owns UQ hidden units (4 UQ
+// weight columns): a group of batch tiles has 2 x NT cells (QR rows, two
+// cells a thread); its product is split over 32-column groups x k-groups,
+// one warp each; a k-group's partials are QR rows x QRS words.
+template <int UQ>
+struct QGeo {
+  static constexpr int NCOL = 4 * UQ;
+  static constexpr int QR = 2 * NT / UQ;           // rows of a group of tiles
+  static constexpr int TPG = QR / BT;              // tiles of a group
+  static constexpr int CG = NCOL / 32;             // column groups
+  static constexpr int KG = NWARP / CG;            // k-groups
+  static constexpr int MT = QR / 16;               // m16 tiles of a full group
+  static constexpr int QRS = NCOL + 8;             // words between partial rows
+  static constexpr int RING_BYTES = QSTAGE * QR * ARS;
+  static constexpr int RED_BYTES = KG * QR * QRS * 4;
+  static_assert(RED_BYTES <= RING_BYTES, "the partials live in the idle ring");
+  static_assert(QR % 16 == 0 && NCOL % 32 == 0 && NWARP % CG == 0, "whole mma tiles");
+};
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a . b on one m16 x n8 tile and one k step (32 bytes)
+__device__ __forceinline__ void mma_kstep(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_kstep(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bytes of a padded row of the exchange and of a weight column: H elements
+// up to a multiple of the 32-byte k step
+__host__ __device__ __forceinline__ int quant_row_bytes(int H, bool int8) {
+  return ((int8 ? H : 2 * H) + 31) / 32 * 32;
+}
+
+// The quantised h of a cell, as the exchange stores it
+template <bool INT8>
+__device__ __forceinline__ void store_quant(unsigned char* p, float h) {
+  if (INT8)
+    *reinterpret_cast<signed char*>(p) = (signed char)__float2int_rn(__fmul_rn(h, 127.0f));
+  else
+    *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(h);
+}
+
+// CTA (x, r) owns hidden units [UQ x, UQ x + UQ) of the batch tiles r,
+// r + gridDim.y, ..., walked in groups of QGeo<UQ>::TPG. w: (H, 4H)
+// row-major, bf16 or int8; ws (4H,) = w_scale / 127 (int8 only); hx: the
+// exchange, 2 x B rows of quant_row_bytes(H) bytes, zero beyond H (the
+// wrapper zeroes it). Shared memory: W slice (4 UQ columns of the padded row
+// + 16 bytes), ring (between a group's last chunk and the next group the
+// k-groups' partials), c of the CTA's cells.
+template <bool INT8, int UQ>
+__global__ void __launch_bounds__(NT, 1)
+lstm_quant_persist_kernel(const float* __restrict__ xp, const void* __restrict__ w,
+                          const float* __restrict__ ws, const float* __restrict__ h0,
+                          float* c, float* y, unsigned char* hx, unsigned* bar, int B, int T,
+                          int H) {
+  typedef QGeo<UQ> G;
+  typedef typename std::conditional<INT8, int, float>::type acc_t;
+  constexpr int ES = INT8 ? 1 : 2;  // bytes an element
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kbp = quant_row_bytes(H, INT8), WS = kbp + 16;
+  unsigned char* wsm = smem;
+  unsigned char* ring = smem + (size_t)G::NCOL * WS;
+  acc_t* red = reinterpret_cast<acc_t*>(ring);
+  float* cst = reinterpret_cast<float*>(ring + G::RING_BYTES);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = blockIdx.x * UQ;
+  const int H4 = 4 * H;
+
+  // zeros first: the K tail and the columns of units >= H stay 0
+  for (int i = tid; i < (G::NCOL * WS + G::RING_BYTES) / 16; i += NT)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  // W[k, g H + j0 + u] -> column g UQ + u, byte k ES; four units a load
+  for (int idx = tid; idx < H * UQ; idx += NT) {
+    const int k = idx / UQ, p = idx % UQ, g = p / (UQ / 4), u4 = p % (UQ / 4) * 4;
+    if (j0 + u4 >= H) continue;
+    const size_t off = (size_t)k * H4 + g * H + j0 + u4;
+    unsigned char* col = wsm + (size_t)(g * UQ + u4) * WS + k * ES;
+    if (INT8) {
+      const unsigned v =
+          __ldg(reinterpret_cast<const unsigned*>(static_cast<const signed char*>(w) + off));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) col[e * WS] = (unsigned char)(v >> (8 * e));
+    } else {
+      const uint2 v =
+          __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(w) + off));
+      const unsigned vv[2] = {v.x, v.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<unsigned short*>(col + e * WS) =
+            (unsigned short)(vv[e >> 1] >> (16 * (e & 1)));
+    }
+  }
+  const int tile0 = BT * blockIdx.y, tile_step = BT * gridDim.y;
+  const int ntile = ((B + BT - 1) / BT - (int)blockIdx.y + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int ngroup = (ntile + G::TPG - 1) / G::TPG;
+  // this thread's two cells of a group: rows crow and crow + QR / 2, unit u
+  const int crow = tid / UQ, u = tid % UQ, j = j0 + u;
+  float wsc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (INT8 && j < H) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wsc[g] = __ldg(ws + g * H + j);
+  }
+  // row r of group gi: batch row b of the CTA's tile m, if there is one
+  auto row_of = [&](int gi, int r, int& m) {
+    m = G::TPG * gi + r / BT;
+    return tile0 + m * tile_step + r % BT;
+  };
+  // c of the cells and the rounded h0 of the exchange's first rows
+  const size_t hx_half = (size_t)B * kbp;
+  for (int gi = 0; gi < ngroup; ++gi) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = crow + e * (G::QR / 2);
+      int m;
+      const int b = row_of(gi, r, m);
+      if (m < ntile && b < B && j < H) {
+        cst[m * (BT * UQ) + (r % BT) * UQ + u] = c[(size_t)b * H + j];
+        store_quant<INT8>(hx + (size_t)b * kbp + (size_t)j * ES, h0[(size_t)b * H + j]);
+      }
+    }
+  }
+  unsigned* my_bar = bar + blockIdx.y;  // rows are independent: a barrier a row slice
+  grid_arrive(my_bar);
+  grid_wait(my_bar, gridDim.x);
+
+  const long long xrow = (long long)T * H4, yrow = (long long)T * H;
+  // the copy: this thread's 16-byte granule of a row, its first row
+  const int gcol = tid % (KCB / 16), grow = tid / (KCB / 16);
+  const int nchunk = (kbp + KCB - 1) / KCB;
+  // the product: this warp's column group and k-group
+  const int cg = warp % G::CG, kg = warp / G::CG;
+  // ldmatrix addresses: A row of an m16 tile and byte; W column and byte
+  const int a_row = lane & 15, a_byte = (lane >> 4) * 16;
+  const int w_col = cg * 32 + (lane & 7) + (lane >> 4) * 8, w_byte = ((lane >> 3) & 1) * 16;
+  for (int t = 0; t < T; ++t) {
+    const unsigned char* h_in = hx + (t & 1) * hx_half;
+    unsigned char* h_out = hx + ((t + 1) & 1) * hx_half;
+    for (int gi = 0; gi < ngroup; ++gi) {
+      const int mt = (min(G::TPG, ntile - G::TPG * gi) + 1) / 2;  // m16 tiles of the group
+      // Chunk fc of the group's rows into ring slot fc % QSTAGE; called by
+      // every thread, QAHEAD chunks ahead of the mma
+      int fc = 0;
+      auto fetch = [&]() {
+        if (fc < nchunk) {
+          const int k0 = fc * KCB;
+          if (16 * gcol < kbp - k0) {
+            unsigned char* dst = ring + (fc % QSTAGE) * (G::QR * ARS) + 16 * gcol;
+#pragma unroll
+            for (int r = grow; r < G::QR; r += NT / (KCB / 16)) {
+              int m;
+              const int b = row_of(gi, r, m);
+              if (m < ntile && b < B)
+                cp_async16(dst + r * ARS, h_in + (size_t)b * kbp + k0 + 16 * gcol);
+            }
+          }
+          ++fc;
+        }
+        cp_async_commit();  // an empty group keeps the count uniform
+      };
+      if (gi > 0) __syncthreads();  // everyone is done with the partials in the ring
+#pragma unroll
+      for (int i = 0; i < QAHEAD; ++i) fetch();
+      float x[2][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // in flight during the contraction
+        const int r = crow + e * (G::QR / 2);
+        int m;
+        const int b = row_of(gi, r, m);
+        if (m < ntile && b < B && j < H) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) x[e][g] = __ldg(xp + b * xrow + (size_t)t * H4 + g * H + j);
+        }
+      }
+      acc_t acc[G::MT][4][4];
+#pragma unroll
+      for (int mi = 0; mi < G::MT; ++mi)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mi][n][i] = 0;
+      for (int chunk = 0; chunk < nchunk; ++chunk) {
+        const int slot = chunk % QSTAGE;
+        cp_async_wait<QAHEAD - 1>();  // this thread's part of the chunk has landed
+        __syncthreads();              // everyone's has; everyone is done with the chunk before
+        fetch();                      // into the slot of the chunk before
+        const int k0 = chunk * KCB;
+        const int nks = min(KCB, kbp - k0) / 32;
+        const unsigned char* a_base = ring + slot * (G::QR * ARS) + a_row * ARS + a_byte;
+        const unsigned char* w_base = wsm + (size_t)w_col * WS + k0 + w_byte;
+#pragma unroll 2
+        for (int ks = kg; ks < nks; ks += G::KG) {
+          unsigned a[G::MT][4], bw[2][4];
+#pragma unroll
+          for (int mi = 0; mi < G::MT; ++mi)
+            if (mi < mt) ldmatrix_x4(a[mi], a_base + mi * 16 * ARS + ks * 32);
+          ldmatrix_x4(bw[0], w_base + ks * 32);
+          ldmatrix_x4(bw[1], w_base + (size_t)16 * WS + ks * 32);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int mi = 0; mi < G::MT; ++mi)
+              if (mi < mt)
+                mma_kstep(acc[mi][n], a[mi], bw[n >> 1][2 * (n & 1)], bw[n >> 1][2 * (n & 1) + 1]);
+        }
+      }
+      // the k-group's partials into red[kg][row of the group][column], once
+      // every warp is done with the ring
+      __syncthreads();
+#pragma unroll
+      for (int mi = 0; mi < G::MT; ++mi) {
+        if (mi == mt) break;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          acc_t* p = red + (kg * G::QR + mi * 16 + (lane >> 2)) * G::QRS + cg * 32 + n * 8 +
+                     2 * (lane & 3);
+          p[0] = acc[mi][n][0];
+          p[1] = acc[mi][n][1];
+          p[8 * G::QRS] = acc[mi][n][2];
+          p[8 * G::QRS + 1] = acc[mi][n][3];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = crow + e * (G::QR / 2);
+        int m;
+        const int b = row_of(gi, r, m);
+        if (!(m < ntile && b < B && j < H)) continue;
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc_t s = 0;
+#pragma unroll
+          for (int q = 0; q < G::KG; ++q) s += red[(q * G::QR + r) * G::QRS + g * UQ + u];
+          gate[g] = INT8 ? __fadd_rn(x[e][g], __fmul_rn((float)s, wsc[g]))
+                         : __fadd_rn(x[e][g], (float)s);
+        }
+        const float ig = sigmoid_rn(gate[0]);
+        const float fg = sigmoid_rn(gate[1]);
+        const float gg = tanhf(gate[2]);
+        const float og = sigmoid_rn(gate[3]);
+        float* cell_c = cst + m * (BT * UQ) + (r % BT) * UQ + u;
+        const float cn = __fadd_rn(__fmul_rn(fg, *cell_c), __fmul_rn(ig, gg));
+        *cell_c = cn;
+        const float hn = __fmul_rn(og, tanhf(cn));
+        y[b * yrow + (size_t)t * H + j] = hn;
+        store_quant<INT8>(h_out + (size_t)b * kbp + (size_t)j * ES, hn);  // the exchange
+      }
+    }
+    if (t + 1 < T) {  // h_t of the slice's rows complete on every CTA before it is read
+      grid_arrive(my_bar);
+      grid_wait(my_bar, gridDim.x * (unsigned)(t + 2));
+    }
+  }
+  if (tid < BT * UQ && j < H) {
+    const int r = tid / UQ;
+    for (int m = 0; m < ntile; ++m) {
+      const int b = tile0 + m * tile_step + r;
+      if (b < B) c[(size_t)b * H + j] = cst[m * (BT * UQ) + r * UQ + u];
+    }
+  }
+}
+
 // Backward: CTA (x, r) owns hidden units [16 x, 16 x + 16) of the batch
 // tiles r, r + gridDim.y, ... Shared memory: W^T slice (4H x 16 bf16), ring,
 // partials, dc of its cells.
@@ -703,8 +1054,8 @@ lstm_bwd_persist_kernel(const float* __restrict__ dy, const float* __restrict__ 
 
 // Row slices of the grid: as many as the card holds beside each other with
 // one CTA an SM, at most one a batch tile; 0 if not even one fits.
-int row_slices(int B, int H, int sms) {
-  const int tiles = (B + BT - 1) / BT, gx = (H + U - 1) / U;
+int row_slices(int B, int H, int sms, int units = U) {
+  const int tiles = (B + BT - 1) / BT, gx = (H + units - 1) / units;
   return tiles < sms / gx ? tiles : sms / gx;
 }
 
@@ -721,20 +1072,27 @@ size_t smem_bytes_infer(int B, int slices) {
   return (size_t)(RING_I_FLOATS + RED_I_FLOATS + tiles * BT * U) * 4;
 }
 
-// One cooperative launch of ceil(H / 16) x slices CTAs, after the occupancy
-// says that they fit the card together.
-template <int NCG>
-int launch(const void* kernel, int B, int H, void** args, cudaStream_t stream,
-           bool infer = false) {
+template <int UQ>
+size_t smem_bytes_quant(int B, int H, int slices, bool int8) {
+  const int tiles = ((B + BT - 1) / BT + slices - 1) / slices;
+  return (size_t)QGeo<UQ>::NCOL * (quant_row_bytes(H, int8) + 16) + QGeo<UQ>::RING_BYTES +
+         (size_t)tiles * BT * UQ * 4;
+}
+
+// One cooperative launch of ceil(H / units) x slices CTAs, after the
+// occupancy says that they fit the card together; smem_of(B, slices): the
+// shared memory of a CTA.
+template <typename SmemOf>
+int launch(const void* kernel, int B, int H, SmemOf smem_of, void** args,
+           cudaStream_t stream, int units = U) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  const int gx = (H + U - 1) / U, slices = row_slices(B, H, sms);
+  const int gx = (H + units - 1) / units, slices = row_slices(B, H, sms, units);
   if (slices < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const size_t smem = (size_t)128 * H + (infer ? smem_bytes_infer(B, slices)
-                                               : smem_bytes<NCG>(B, slices));
+  const size_t smem = smem_of(B, slices);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem)) !=
@@ -761,8 +1119,9 @@ extern "C" int lstm_fwd_train_persist(const float* xp, const void* w, const floa
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
   unsigned* barp = static_cast<unsigned*>(bar);
   void* args[] = {&xp, &wb, &h0, &c, &y, &c_seq, &gates, &barp, &B, &T, &H};
-  return launch<8>(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<true>), B, H,
-                   args, (cudaStream_t)stream);
+  return launch(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<true>), B, H,
+                [H](int b, int s) { return 128 * (size_t)H + smem_bytes<8>(b, s); }, args,
+                (cudaStream_t)stream);
 }
 
 // The inference recurrence (lstm_f32h's arguments, batch-major) as one
@@ -784,13 +1143,15 @@ extern "C" int lstm_f32h_persist(const float* xp, const void* w, const float* h0
   const int slices = row_slices(B, H, sms);
   if (slices >= 1 && (B + BT - 1) / BT > slices) {
     void* args[] = {&xp, &wb, &h0, &c, &y, &barp, &B, &T, &H};
-    return launch<8>(reinterpret_cast<const void*>(lstm_infer_persist_kernel), B, H, args,
-                     (cudaStream_t)stream, true);
+    return launch(reinterpret_cast<const void*>(lstm_infer_persist_kernel), B, H,
+                  [H](int b, int s) { return 128 * (size_t)H + smem_bytes_infer(b, s); }, args,
+                  (cudaStream_t)stream);
   }
   float* none = nullptr;
   void* args[] = {&xp, &wb, &h0, &c, &y, &none, &none, &barp, &B, &T, &H};
-  return launch<8>(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<false>), B, H, args,
-                   (cudaStream_t)stream);
+  return launch(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<false>), B, H,
+                [H](int b, int s) { return 128 * (size_t)H + smem_bytes<8>(b, s); }, args,
+                (cudaStream_t)stream);
 }
 
 // lstm_bwd_f32h's arguments and `bar` as above. One launch: the T reverse
@@ -803,6 +1164,39 @@ extern "C" int lstm_bwd_persist(const float* dy, const float* gates, const float
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(wt);
   unsigned* barp = static_cast<unsigned*>(bar);
   void* args[] = {&dy, &gates, &c_seq, &c_prev, &wb, &d_gates, &dh0, &dc, &barp, &B, &T, &H};
-  return launch<2>(reinterpret_cast<const void*>(lstm_bwd_persist_kernel), B, H, args,
-                   (cudaStream_t)stream);
+  return launch(reinterpret_cast<const void*>(lstm_bwd_persist_kernel), B, H,
+                [H](int b, int s) { return 128 * (size_t)H + smem_bytes<2>(b, s); }, args,
+                (cudaStream_t)stream);
+}
+
+// The quantised-state inference recurrences (lstm_bf16h's / lstm_int8's
+// arguments, batch-major; wq here the row-major (H, 4H) int8 weight, not the
+// per-step kernel's packed words) as one cooperative launch a layer. hx: the
+// exchange, 2 x B rows of the H elements padded with zeros to a multiple of
+// 32 bytes (2 * 2 * B * 1024 or 2 * B * 1024 bytes at H=1024), zeroed; bar:
+// zeroed 32-bit counters, one a batch tile of 8 rows. A shape outside the
+// plan is an error, never another route.
+extern "C" int lstm_bf16h_persist(const float* xp, const void* w, const float* h0, float* c,
+                                  float* y, void* hx, void* bar, int B, int T, int H,
+                                  void* stream) {
+  if (B < 1 || T < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
+  const float* none = nullptr;
+  unsigned char* hxp = static_cast<unsigned char*>(hx);
+  unsigned* barp = static_cast<unsigned*>(bar);
+  void* args[] = {&xp, &w, &none, &h0, &c, &y, &hxp, &barp, &B, &T, &H};
+  return launch(reinterpret_cast<const void*>(lstm_quant_persist_kernel<false, UQ_BF16>), B, H,
+                [H](int b, int s) { return smem_bytes_quant<UQ_BF16>(b, H, s, false); }, args,
+                (cudaStream_t)stream, UQ_BF16);
+}
+
+extern "C" int lstm_int8_persist(const float* xp, const void* wq, const float* ws,
+                                 const float* h0, float* c, float* y, void* hx, void* bar,
+                                 int B, int T, int H, void* stream) {
+  if (B < 1 || T < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
+  unsigned char* hxp = static_cast<unsigned char*>(hx);
+  unsigned* barp = static_cast<unsigned*>(bar);
+  void* args[] = {&xp, &wq, &ws, &h0, &c, &y, &hxp, &barp, &B, &T, &H};
+  return launch(reinterpret_cast<const void*>(lstm_quant_persist_kernel<true, UQ_INT8>), B, H,
+                [H](int b, int s) { return smem_bytes_quant<UQ_INT8>(b, H, s, true); }, args,
+                (cudaStream_t)stream, UQ_INT8);
 }

@@ -31,7 +31,8 @@
 //  - bf16h: h is rounded to bf16 (round-to-nearest-even, as astype) before
 //    the dot; a bf16 x bf16 product is exact in fp32, accumulated in fp32.
 //  - int8: qh = rint(127 h) (half to even, as jnp.round) packed four to a
-//    word; acc = qh . Wq with __dp4a into int32 (exact);
+//    word, the last word of a row padded with zeros where H % 4 != 0;
+//    acc = qh . Wq with __dp4a into int32 (exact);
 //    gates = xp + float(acc) * (w_scale / 127).
 //  - expf / tanhf and explicit _rn arithmetic, no fast math, so the kernel
 //    stays within a few ulp of the plain PyTorch version.
@@ -99,7 +100,7 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
   // 1. Stage this batch tile's h in shared memory, k-major ([k][bt]).
   if (MODE == kInt8) {
     int32_t* hq = reinterpret_cast<int32_t*>(smem);
-    const int K4 = H >> 2;
+    const int K4 = (H + 3) >> 2;
     for (int idx = threadIdx.x; idx < BT * K4; idx += blockDim.x) {
       const int bt = idx / K4, k4 = idx - bt * K4, b = b0 + bt;
       uint32_t word = 0;
@@ -107,6 +108,7 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
         const float* src = h_in + b * h_row + 4 * k4;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          if (4 * k4 + e >= H) break;
           const int q = __float2int_rn(__fmul_rn(src[e], 127.0f));
           word |= (uint32_t)(q & 0xff) << (8 * e);
         }
@@ -134,8 +136,8 @@ lstm_step_kernel(const float* __restrict__ xp, long long xp_row,
   if (j < H) {
     if (MODE == kInt8) {
       const int32_t* hq = reinterpret_cast<const int32_t*>(smem);
-      const int32_t* wp = static_cast<const int32_t*>(w);  // (H/4, 4H) words
-      const int K4 = H >> 2;
+      const int32_t* wp = static_cast<const int32_t*>(w);  // (ceil(H/4), 4H) words
+      const int K4 = (H + 3) >> 2;
       const int per = (K4 + NW - 1) / NW;
       const int kb = warp * per, ke = min(K4, kb + per);
       // unrolled so the weight loads of several k are in flight at once:
@@ -248,7 +250,7 @@ template <int MODE>
 int run_layer(const float* xp, const void* w, const float* ws, const float* h0,
               float* c, float* y, float* c_seq, float* g_seq, int B, int T, int H,
               cudaStream_t stream) {
-  const size_t stage = MODE == kInt8 ? (size_t)BT * (H / 4) * 4 : (size_t)BT * H * 4;
+  const size_t stage = MODE == kInt8 ? (size_t)BT * ((H + 3) / 4) * 4 : (size_t)BT * H * 4;
   const size_t reduce = (size_t)NW * BT * 4 * 32 * 4;
   const size_t smem = MODE == kGatesOnly ? 0 : stage > reduce ? stage : reduce;
   if (smem > 48 * 1024) {
@@ -291,8 +293,8 @@ extern "C" int lstm_bf16h(const float* xp, const void* w, const float* h0, float
                           (cudaStream_t)stream);
 }
 
-// wq: (H/4, 4H) int32 words, byte e of word [k4, n] = Wq[4 k4 + e, n];
-// ws (4H,) f32 = w_scale / 127.
+// wq: (ceil(H/4), 4H) int32 words, byte e of word [k4, n] = Wq[4 k4 + e, n]
+// (0 for 4 k4 + e >= H); ws (4H,) f32 = w_scale / 127.
 extern "C" int lstm_int8(const float* xp, const void* wq, const float* ws,
                          const float* h0, float* c, float* y, int B, int T, int H,
                          void* stream) {

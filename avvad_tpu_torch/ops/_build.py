@@ -41,6 +41,11 @@ SIGNATURES = {
     # lstm_f32h as one cooperative launch a layer: xp, w, h0, c, y, the
     # barrier's counters, B, T, H, stream
     "lstm_f32h_persist": [_P] * 6 + [_I] * 3 + [_P],
+    # lstm_bf16h / lstm_int8 as one cooperative launch a layer: xp, w (bf16),
+    # or wq (row-major int8) and ws, h0, c, y, the exchange of the rounded h,
+    # the barrier's counters, B, T, H, stream
+    "lstm_bf16h_persist": [_P] * 7 + [_I] * 3 + [_P],
+    "lstm_int8_persist": [_P] * 8 + [_I] * 3 + [_P],
     # xp, w, h0, c, y, scratch (B, 4H), B, T, H, mode, stream
     "lstm_probe": [_P] * 6 + [_I] * 4 + [_P],
     # x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, out,

@@ -3,14 +3,13 @@
 Counterpart of avvad_tpu/ops/lstm_pallas.py:387 ``lstm_layer_fused`` and
 its custom VJP (``_make_lstm_vjp``). On a CUDA tensor each wrapper
 launches its hand-written kernel or raises; on a CPU tensor it runs its
-plain version, the same arithmetic in plain PyTorch. The fp32-h inference
-kernel and the two training kernels are one cooperative launch per layer
+plain version, the same arithmetic in plain PyTorch. The three inference
+kernels and the two training kernels are one cooperative launch per layer
 (``csrc/lstm_persistent.cu``: the weight slice stays in shared memory and
 grid barriers separate the steps) wherever ``persistent_plan`` fits the
 shape on the card; elsewhere they are the per-step kernels of
 ``csrc/lstm_recurrence.cu`` and ``csrc/lstm_train.cu``, one launch per
-time step, as the quantised inference kernels and the probe kernel always
-are.
+time step, as the probe kernel always is.
 The Pallas batch padding to 8/32 rows is a TPU tiling rule: rows are
 independent, so the port runs the batch as given.
 
@@ -21,8 +20,10 @@ variant              kernel                      replaces (avvad_tpu/ops/lstm_pa
 ===================  ==========================  ======================================
 "none_persist"       ``lstm_f32h_persist``       ``_lstm_kernel`` via ``_fwd_infer_call``
 "none"               ``lstm_f32h``               the same, per step: shapes outside the plan
-"bf16"               ``lstm_bf16h``              ``_lstm_kernel_hbf16`` via ``_fwd_quant_call``
-"int8"               ``lstm_int8``               ``_lstm_kernel_int8`` via ``_fwd_quant_call``
+"bf16_persist"       ``lstm_bf16h_persist``      ``_lstm_kernel_hbf16`` via ``_fwd_quant_call``
+"bf16"               ``lstm_bf16h``              the same, per step: shapes outside the plan
+"int8_persist"       ``lstm_int8_persist``       ``_lstm_kernel_int8`` via ``_fwd_quant_call``
+"int8"               ``lstm_int8``               the same, per step: shapes outside the plan
 "fwd_train_persist"  ``lstm_fwd_train_persist``  ``_lstm_fwd_train_kernel`` via ``_fwd_train_call``
 "bwd_persist"        ``lstm_bwd_persist``        ``_lstm_bwd_kernel`` via ``_bwd_call``
 "fwd_train"          ``lstm_fwd_train_f32h``     the same, per step: shapes outside the plan
@@ -53,7 +54,9 @@ STATE_QUANTS = ("none", "bf16", "int8")
 TRAIN_KERNELS = ("fwd_train_persist", "bwd_persist", "fwd_train", "bwd")
 PROBE_MODES = ("full", "h_bf16", "gates_only", "matmul_only")  # the C entry's codes
 KERNEL_NAMES = {"none_persist": "lstm_f32h_persist",
-                "none": "lstm_f32h", "bf16": "lstm_bf16h", "int8": "lstm_int8",
+                "none": "lstm_f32h", "bf16_persist": "lstm_bf16h_persist",
+                "bf16": "lstm_bf16h", "int8_persist": "lstm_int8_persist",
+                "int8": "lstm_int8",
                 "fwd_train_persist": "lstm_fwd_train_persist",
                 "bwd_persist": "lstm_bwd_persist",
                 "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
@@ -78,6 +81,18 @@ _PERSIST_PARTIAL_ROW = {"fwd_train_persist": 80, "bwd_persist": 16}
 # where it has one, inference is the training forward without its stores
 PERSIST_INFER_CHUNK = 256
 PERSIST_INFER_K_GROUPS = 8
+# the quantised-state inference kernels (tensor cores) on a grid of their
+# own: a CTA owns 16 (bf16) or 32 (int8: its weight slice is half as large)
+# hidden units of the 8-row batch tiles of its row slice, walked in groups of
+# 512 / units rows (2 cells a thread); the exchange rows and weight columns
+# are the H elements padded with zeros to a multiple of the 32-byte k step
+# (and 16 bytes between columns); the ring holds four chunks of 512 bytes a
+# row (16 between rows), and between a group's last chunk and the next group
+# the partials of 8 warps / (units / 8) k-groups (rows of 4 units + 8 words)
+QUANT_ELEMENT_BYTES = {"bf16_persist": 2, "int8_persist": 1}
+PERSIST_QUANT_UNITS = {"bf16_persist": 16, "int8_persist": 32}
+PERSIST_QUANT_CHUNK = 512
+PERSIST_QUANT_STAGES = 4
 # dynamic shared memory a block may opt in to on sm_90, the only target
 SMEM_LIMIT_SM90 = 232448
 
@@ -85,6 +100,22 @@ SMEM_LIMIT_SM90 = 232448
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def quant_row_bytes(h: int, variant: str) -> int:
+    """Bytes of a padded row of a quantised kernel's exchange (and of a
+    weight column in its shared memory): H elements up to a multiple of 32."""
+    return -(-h * QUANT_ELEMENT_BYTES[variant] // 32) * 32
+
+
+def quant_group_rows(variant: str) -> int:
+    """Rows of a group of batch tiles in a quantised kernel: 2 cells a thread."""
+    return 2 * 256 // PERSIST_QUANT_UNITS[variant]
+
+
+def quant_k_groups(variant: str) -> int:
+    """k-groups of a quantised kernel's product: 8 warps over 32-column groups."""
+    return 8 // (4 * PERSIST_QUANT_UNITS[variant] // 32)
 
 
 def persistent_plan(b: int, h: int, sm_count: int,
@@ -106,7 +137,11 @@ def persistent_plan(b: int, h: int, sm_count: int,
     {variant: bytes}, "infer": whether ``lstm_f32h_persist`` takes the shape
     too, "infer_pairs": whether it walks batch tiles in pairs (a CTA has
     two or more) or runs the training forward without its residual stores
-    (one tile a CTA), "infer_smem_bytes"}."""
+    (one tile a CTA), "infer_smem_bytes", "quant_grid" and
+    "quant_smem_bytes": {"bf16_persist" / "int8_persist": the quantised-state
+    kernels' grid (unit slices of ``PERSIST_QUANT_UNITS``, row slices) and
+    shared memory}, "infer_bf16" / "infer_int8": whether each takes the
+    shape}."""
     if b < 1 or h < 4 or h % 4:
         return None
     unit_slices = -(-h // PERSIST_UNITS)
@@ -126,9 +161,19 @@ def persistent_plan(b: int, h: int, sm_count: int,
         128 * h + PERSIST_STAGES * pair_rows * (PERSIST_INFER_CHUNK + 8) * 4
         + PERSIST_INFER_K_GROUPS * pair_rows * _PERSIST_PARTIAL_ROW["fwd_train_persist"] * 4
         + state)
+    quant_grid, quant = {}, {}
+    for v, units in PERSIST_QUANT_UNITS.items():
+        gx = -(-h // units)
+        gy = min(tiles, sm_count // gx)
+        quant_grid[v] = (gx, gy)
+        quant[v] = (4 * units * (quant_row_bytes(h, v) + 16)
+                    + PERSIST_QUANT_STAGES * quant_group_rows(v) * (PERSIST_QUANT_CHUNK + 16)
+                    + -(-tiles // gy) * PERSIST_ROWS * units * 4)
     return {"units": PERSIST_UNITS, "rows": PERSIST_ROWS, "grid": (unit_slices, slices),
             "smem_bytes": smem, "infer": infer_smem <= smem_limit, "infer_pairs": pairs,
-            "infer_smem_bytes": infer_smem}
+            "infer_smem_bytes": infer_smem, "quant_grid": quant_grid, "quant_smem_bytes": quant,
+            "infer_bf16": quant["bf16_persist"] <= smem_limit,
+            "infer_int8": quant["int8_persist"] <= smem_limit}
 
 
 def _persistent(dev: torch.device, b: int, h: int) -> bool:
@@ -139,10 +184,13 @@ def _persistent(dev: torch.device, b: int, h: int) -> bool:
 
 def infer_variant(state_quant: str, b: int, h: int, sm_count: int) -> str:
     """The inference kernel of ``state_quant`` for a (B, ., H) layer on a
-    card with ``sm_count`` SMs: the persistent one for "none" where
-    ``persistent_plan`` takes the shape, else the per-step ones."""
-    plan = persistent_plan(b, h, sm_count) if state_quant == "none" else None
-    return "none_persist" if plan is not None and plan["infer"] else state_quant
+    card with ``sm_count`` SMs: the persistent one where ``persistent_plan``
+    takes the shape and that kernel's shared memory fits, else the per-step
+    one."""
+    plan = persistent_plan(b, h, sm_count)
+    fits = plan is not None and plan[{"none": "infer", "bf16": "infer_bf16",
+                                      "int8": "infer_int8"}[state_quant]]
+    return state_quant + "_persist" if fits else state_quant
 
 
 def _barrier(dev: torch.device, b: int) -> torch.Tensor:
@@ -313,9 +361,13 @@ def _launch_error(variant: str, rc: int, dev: torch.device, b: int, h: int) -> s
     plan = persistent_plan(b, h, sms)
     if plan is None:
         return msg + f"; persistent_plan({b}, {h}, {sms}) refuses this shape"
-    smem = (plan["infer_smem_bytes"] if variant == "none_persist"
-            else plan["smem_bytes"][variant])
-    msg += (f"; a cooperative launch of {plan['grid'][0]} x {plan['grid'][1]} blocks of "
+    if variant in QUANT_ELEMENT_BYTES:
+        grid, smem = plan["quant_grid"][variant], plan["quant_smem_bytes"][variant]
+    else:
+        grid = plan["grid"]
+        smem = (plan["infer_smem_bytes"] if variant == "none_persist"
+                else plan["smem_bytes"][variant])
+    msg += (f"; a cooperative launch of {grid[0]} x {grid[1]} blocks of "
             f"256 threads with {smem} bytes of shared memory each, one an SM on "
             f"{sms} SMs, all resident at once")
     if rc == _COOPERATIVE_TOO_LARGE:
@@ -339,8 +391,9 @@ def _run(variant: str, dev: torch.device, fn, *args) -> None:
 
 
 def _launch(x_proj, w_hh, h0, c0, variant):
-    """Forward kernels: "none_persist" / "none" / "bf16" / "int8" -> y;
-    "fwd_train" and "fwd_train_persist" -> (y, c_seq, gates)."""
+    """Forward kernels: "none_persist" / "none" / "bf16_persist" / "bf16" /
+    "int8_persist" / "int8" -> y; "fwd_train" and "fwd_train_persist" ->
+    (y, c_seq, gates)."""
     from ._build import kernel_lib
 
     dev = x_proj.device
@@ -363,12 +416,27 @@ def _launch(x_proj, w_hh, h0, c0, variant):
     if t == 0 or b == 0:
         return out
     lib = kernel_lib()
-    if variant == "int8":
-        _require(h % 4 == 0, f"int8 recurrence needs H % 4 == 0, got H={h}")
+    if variant in QUANT_ELEMENT_BYTES:
+        # the exchange of the rounded h: two rows a batch row, by step parity,
+        # padded with zeros that the kernel never writes
+        hx = torch.zeros(2, b, quant_row_bytes(h, variant), dtype=torch.uint8, device=dev)
+        bar = _barrier(dev, b)
+        if variant == "int8_persist":
+            wq, ws = _quant_weights(w_hh)  # row-major (H, 4H) int8, (4H,) w_scale / 127
+            weights = [wq.contiguous(), ws]
+        else:
+            weights = [w_hh.to(torch.bfloat16).contiguous()]
+        _run(variant, dev, getattr(lib, KERNEL_NAMES[variant]), x_proj.data_ptr(),
+             *(a.data_ptr() for a in weights), h0.data_ptr(), c.data_ptr(), y.data_ptr(),
+             hx.data_ptr(), bar.data_ptr(), b, t, h)
+    elif variant == "int8":
         wq, ws = _quant_weights(w_hh)
-        # pack four consecutive k of each column into one int32 for __dp4a
-        wp = (wq.reshape(h // 4, 4, h4).permute(0, 2, 1).contiguous()
-              .view(torch.int32).reshape(h // 4, h4))
+        # pack four consecutive k of each column into one int32 for __dp4a,
+        # the last word's missing k as zero rows
+        k4 = -(-h // 4)
+        wq = torch.cat([wq, wq.new_zeros(4 * k4 - h, h4)])
+        wp = (wq.reshape(k4, 4, h4).permute(0, 2, 1).contiguous()
+              .view(torch.int32).reshape(k4, h4))
         _run(variant, dev, lib.lstm_int8, x_proj.data_ptr(), wp.data_ptr(),
              ws.data_ptr(), h0.data_ptr(), c.data_ptr(), y.data_ptr(), b, t, h)
     else:
@@ -563,10 +631,12 @@ def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     per-column int8). Under autograd (grad enabled, an input requires it)
     "none" runs ``LSTMRecurrence`` (K1d forward, K1e backward) and the
     quantised variants raise NotImplementedError, as in JAX; otherwise
-    the inference kernel runs: for "none" ``lstm_f32h_persist``, one launch
-    a layer, where ``persistent_plan`` fits the shape on the card, else the
-    per-step ``lstm_f32h``. A CUDA ``x_proj`` launches the kernels (or
-    raises); a CPU ``x_proj`` runs their plain versions."""
+    the inference kernel runs: ``lstm_f32h_persist``, ``lstm_bf16h_persist``
+    or ``lstm_int8_persist``, one launch a layer, where ``persistent_plan``
+    fits the shape on the card (``infer_variant``), else the per-step
+    ``lstm_f32h``, ``lstm_bf16h`` or ``lstm_int8``. A CUDA ``x_proj``
+    launches the kernels (or raises); a CPU ``x_proj`` runs their plain
+    versions."""
     _check_args(x_proj, w_hh, h0, c0, state_quant)
     if torch.is_grad_enabled() and any(
             a is not None and a.requires_grad for a in (x_proj, w_hh, h0, c0)):

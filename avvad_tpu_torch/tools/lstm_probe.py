@@ -14,9 +14,10 @@ the LSTM recurrence kernel into its parts, on the card:
 then times the serving op ``lstm_layer_fused`` for state_quant none / bf16 /
 int8, and the log-power frontend on the direct route against ``hop_dft`` at
 the serving shape. The probe kernel goes on timing the per-step
-instantiation; the serving op's "none" is the persistent
-``lstm_f32h_persist`` (one launch a layer) where ``persistent_plan`` takes
-the shape, so its time beside ``full`` is what the redesign gained.
+instantiations; the serving op is the persistent ``lstm_f32h_persist``,
+``lstm_bf16h_persist`` or ``lstm_int8_persist`` (one launch a layer) where
+``persistent_plan`` takes the shape, so its times beside ``full`` and
+``h_bf16`` are what the redesigns gained.
 
     python -m avvad_tpu_torch.tools.lstm_probe [--b 64] [--t 512] [--h 1024]
         [--iters 30] [--modes full,matmul_only,gates_only,h_bf16] [--device cpu]

@@ -7,15 +7,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build every kernel of avvad_tpu_torch/csrc with nvcc (sm_90a), one
    process per source;
 3. each LSTM inference kernel against its plain PyTorch version on the
-   card, at the main path's shape (B=64, T=512, H=1024) and a ragged one
-   (B=3, T=7), with CUDA-event times of the kernel, the plain version and
-   one cuDNN torch.nn.LSTM layer, and the bound from the shapes. K1a
-   ("none") is the persistent lstm_f32h_persist (one cooperative launch a
-   layer) at those shapes and at a ragged one with a single batch tile a
-   CTA (B=13, T=7, H=1000), two launches agreeing bit for bit, and the
-   per-step lstm_f32h outside the plan (B=3, T=7, H=1030); the launch
-   counters show each route, and both are timed in turns at the main
-   path's shape (the per-step route forced);
+   card, with CUDA-event times of the kernel, the plain version and one
+   cuDNN torch.nn.LSTM layer, and the bound from the shapes. For each
+   state_quant the persistent kernel (one cooperative launch a layer:
+   lstm_f32h_persist, K1c lstm_bf16h_persist and K1b lstm_int8_persist on
+   the tensor cores) at the main path's shape (B=64, T=512, H=1024), a
+   ragged one (B=3, T=7) and one with a single batch tile a CTA (B=13, T=7,
+   H=1000), two launches agreeing bit for bit (K1b also bit for bit with
+   its plain version and with the per-step lstm_int8 at each shape), and
+   the per-step kernel (lstm_f32h, lstm_bf16h, lstm_int8) outside the plan
+   (B=3, T=7, H=1030); the launch counters show each route, and both
+   routes are timed in turns at the main path's shape (the per-step route
+   forced);
 4. the int8 tower's kernels against their plain versions: the stem
    epilogue (K3) on bf16 NCHW stem output and the fused BasicBlock (K2) at
    each of the 8 trunk geometries with seeded int8 inputs and random folded
@@ -25,9 +28,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of the int8 peak;
 5. the full-width AV serving step with the float ResNet-18 tower (MCB 1024,
    2 x LSTM 1024, bf16 model, B=64, T=512, 30 fps unique frames) for each
-   LSTM state_quant (2 launches of the persistent K1a with "none", 2 T
-   per-step launches with "bf16" / "int8"), with launch counters read
-   around the step, outputs
+   LSTM state_quant (2 launches of the persistent K1a, K1c or K1b), with
+   launch counters read around the step, outputs
    checked, the step compared with the plain recurrence and timed, its
    stages timed by CUDA events recorded at the tower's and the LSTM stack's
    edges, and one more step under torch.profiler for the device's idle
@@ -59,9 +61,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (AudioVAD) train step at the same B, T and H: 2 persistent K1d and 2
    persistent K1e launches a step, no per-step launch; then an AudioVAD
    train step outside the plan (2 x LSTM 1030, B=4, T=64), which goes
-   through the per-step K1d and K1e (2 T and 2 (T + 1) launches), and an
-   inference pass of that model, which goes through the per-step K1a (2 T
-   launches);
+   through the per-step K1d and K1e (2 T and 2 (T + 1) launches), and
+   inference passes of that model for each state_quant, which go through
+   the per-step K1a, K1c and K1b (2 T launches each);
 9. a short Trainer.fit (one epoch of 2 batches and an eval pass, the
    persistent K1a) of
    the AV model with a checkpoint round trip into a temporary directory
@@ -89,7 +91,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
     each;
-14. one {"kernels": [...]} line (14 rows), then the ok line with the device.
+14. one {"kernels": [...]} line (16 rows), then the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -119,12 +121,17 @@ MEM_BW = 3.35e12
 MEM_BW_NAME = "3.35 TB/s HBM3"
 REPLACES = {"none_persist": "avvad_tpu/ops/lstm_pallas.py:54",
             "none": "avvad_tpu/ops/lstm_pallas.py:54",
+            "bf16_persist": "avvad_tpu/ops/lstm_pallas.py:71",
             "bf16": "avvad_tpu/ops/lstm_pallas.py:71",
+            "int8_persist": "avvad_tpu/ops/lstm_pallas.py:92",
             "int8": "avvad_tpu/ops/lstm_pallas.py:92"}
 # kernel vs plain over T steps (same card, same inputs). none: fp32 in
 # another summation order and expf/tanhf vs PyTorch's. bf16 / int8: the
 # same, plus the rare h whose fp32 noise crosses a bf16 / int8 rounding
-# boundary, which moves one gate term by one LSB of the quantised h.
+# boundary, which moves one gate term by one LSB of the quantised h. The
+# persistent bf16 kernel sums in the tensor cores' fp32 order, held to the
+# same 2e-3; the persistent int8 one to 0 (exact int32 sums, the same
+# float32 operations as plain and as the per-step kernel)
 KERNEL_TOL = {"none": 1e-4, "bf16": 2e-3, "int8": 2e-3}
 # the persistent K1a against plain: fp32 in another summation order, held
 # ten times tighter at the shapes it is checked at (readings 3e-7 to 5e-7)
@@ -133,7 +140,9 @@ PERSIST_TOL = 1e-5
 RAGGED_PERSIST = (13, 7, 1000)
 LSTM_SOURCES = {"none_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
                 "none": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+                "bf16_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
                 "bf16": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
+                "int8_persist": "avvad_tpu_torch/csrc/lstm_persistent.cu",
                 "int8": "avvad_tpu_torch/csrc/lstm_recurrence.cu"}
 # a ragged frame count for the int8 tower's kernels
 N_RAGGED = 37
@@ -274,16 +283,24 @@ def check_lstm_kernel(lstm_fused, sq: str, shape: tuple, variant: str, tol: floa
         raise RuntimeError(f"{variant}: kernel disagrees with plain ({err})")
     if persist and not torch.equal(lstm_fused.lstm_layer_fused(xp, w, state_quant=sq), y):
         raise RuntimeError(f"{variant}: two launches differ")
+    if variant == "int8_persist":
+        with per_step_route(lstm_fused):
+            y_step = lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)
+        if not torch.equal(y_step, y):
+            raise RuntimeError(f"int8_persist B={b} T={t} H={h}: differs from the per-step "
+                               f"lstm_int8 by {(y_step - y).abs().max().item()}")
+        print(f"lstm_int8_persist B={b} T={t} H={h}: bit for bit equal to the per-step lstm_int8")
     return err
 
 
 def kernel_phase(lstm_fused):
     """K1a (persistent and per-step), K1b, K1c against their plain versions,
     with times, the cuDNN layer's time and bounds -> kernel rows."""
-    checks = {"none_persist": ("none", ((B, T, H), RAGGED, RAGGED_PERSIST), PERSIST_TOL),
-              "none": ("none", (OUT_OF_PLAN,), KERNEL_TOL["none"]),
-              "bf16": ("bf16", ((B, T, H), RAGGED), KERNEL_TOL["bf16"]),
-              "int8": ("int8", ((B, T, H), RAGGED), KERNEL_TOL["int8"])}
+    persist_shapes = ((B, T, H), RAGGED, RAGGED_PERSIST)
+    checks = {"none_persist": ("none", persist_shapes, PERSIST_TOL),
+              "bf16_persist": ("bf16", persist_shapes, KERNEL_TOL["bf16"]),
+              "int8_persist": ("int8", persist_shapes, 0.0),
+              **{sq: (sq, (OUT_OF_PLAN,), KERNEL_TOL[sq]) for sq in lstm_fused.STATE_QUANTS}}
     errs = {variant: [check_lstm_kernel(lstm_fused, sq, shape, variant, tol)
                       for shape in shapes]
             for variant, (sq, shapes, tol) in checks.items()}
@@ -293,22 +310,21 @@ def kernel_phase(lstm_fused):
     rows = {}
     for sq in lstm_fused.STATE_QUANTS:
         kernel = lambda: lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)  # noqa: E731
-        if sq == "none":
-            # per step, persistent, persistent, per step: in turns on one card
-            lstm_fused.reset_launches()
-            with per_step_route(lstm_fused):
-                step_ms = [cuda_ms(kernel, 5)]
-            persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
-            with per_step_route(lstm_fused):
-                step_ms.append(cuda_ms(kernel, 5))
-            if lstm_fused.launches["none_persist"] != 12 or lstm_fused.launches["none"] != 12 * T:
-                raise RuntimeError(f"K1a: timed the wrong route: {lstm_fused.launches}")
-            with per_step_route(lstm_fused):  # the per-step kernel at the main path's shape too
-                y_step = kernel()
-            errs["none"].append((y_step - lstm_fused.lstm_layer_plain(xp, w)).abs().max().item())
-            times = {"none_persist": persist_ms, "none": step_ms}
-        else:
-            times = {sq: [cuda_ms(kernel, 5)]}
+        # per step, persistent, persistent, per step: in turns on one card
+        lstm_fused.reset_launches()
+        with per_step_route(lstm_fused):
+            step_ms = [cuda_ms(kernel, 5)]
+        persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
+        with per_step_route(lstm_fused):
+            step_ms.append(cuda_ms(kernel, 5))
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        if counts != {sq + "_persist": 12, sq: 12 * T}:
+            raise RuntimeError(f"{sq}: timed the wrong route: {counts}")
+        with per_step_route(lstm_fused):  # the per-step kernel at the main path's shape too
+            y_step = kernel()
+        errs[sq].append((y_step - lstm_fused.lstm_layer_plain(xp, w, state_quant=sq))
+                        .abs().max().item())
+        times = {sq + "_persist": persist_ms, sq: step_ms}
         plain_ms = cuda_ms(lambda: lstm_fused.lstm_layer_plain(xp, w, state_quant=sq), 2)
         with torch.inference_mode():
             library_ms = cuda_ms(lambda: lstm(x_in), 5)
@@ -551,9 +567,9 @@ def time_step(fn, model, wave, video, label: str, tail: str) -> None:
 
 
 def serving_launches(sq: str) -> dict:
-    """LSTM launches of one serving step (two layers): the persistent K1a
-    once a layer, the quantised per-step kernels T times."""
-    return {"none_persist": 2} if sq == "none" else {sq: 2 * T}
+    """LSTM launches of one serving step (two layers): the persistent K1a,
+    K1c or K1b once a layer."""
+    return {sq + "_persist": 2}
 
 
 def main_path(lstm_fused, rows):
@@ -948,19 +964,26 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
                       "stage_ms": stage_ms,
                       **profile_step(step, state, batch)}))
     if not persist:
-        # the same model in inference: outside the plan K1a is the per-step kernel
+        # the same model in inference: outside the plan K1a, K1c and K1b are
+        # the per-step kernels
         predict = make_predict_step(modality)
-        lstm_fused.reset_launches()
-        probs = predict(state, batch)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
-        with plain_inference(lstm_fused):
-            err = (probs - predict(state, batch)).abs().max().item()
-        print(f"inference {modality} outside the plan: launches {counts}, max|probs-plain| "
-              f"{err:.2e} (tol {PROB_TOL:g})")
-        if counts != {"none": 2 * t} or not err <= PROB_TOL:
-            raise RuntimeError(f"inference outside the plan: launches {counts}, err {err}")
-        rows["none"]["launches"] = counts["none"]
+        for sq in lstm_fused.STATE_QUANTS:
+            for cell in state.model.lstm_audio.layers():
+                cell.state_quant = sq
+            lstm_fused.reset_launches()
+            probs = predict(state, batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in lstm_fused.launches.items() if v}
+            with plain_inference(lstm_fused):
+                err = (probs - predict(state, batch)).abs().max().item()
+            print(f"inference {modality} {sq} outside the plan: launches {counts}, "
+                  f"max|probs-plain| {err:.2e} (tol {PROB_TOL:g})")
+            if counts != {sq: 2 * t} or not err <= PROB_TOL:
+                raise RuntimeError(f"inference {sq} outside the plan: launches {counts}, "
+                                   f"err {err}")
+            rows[sq]["launches"] = counts[sq]
+        for cell in state.model.lstm_audio.layers():
+            cell.state_quant = "none"
     return state
 
 
@@ -1089,7 +1112,7 @@ def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
     # run once more each for their difference
     expect = {k: 0 for k in counts}
     expect.update(probe=T * (4 * (iters + 1) + 2), none_persist=iters + 1,
-                  bf16=T * (iters + 1), int8=T * (iters + 1))
+                  bf16_persist=iters + 1, int8_persist=iters + 1)
     if counts != expect:
         raise RuntimeError(f"probe tool: launch counts {counts}, expected {expect}")
     for mode, n in res["probe_launches"].items():
@@ -1381,7 +1404,8 @@ def main() -> None:
     frontend_phase()
     streaming_phase(float_model, int8_model)
     print(json.dumps({"kernels": [rows[k] for k in (
-        "none_persist", *lstm_fused.STATE_QUANTS, *lstm_fused.TRAIN_KERNELS, "k2", "k3",
+        *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
+        *lstm_fused.TRAIN_KERNELS, "k2", "k3",
         *(f"probe/{m}" for m in lstm_fused.PROBE_MODES))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

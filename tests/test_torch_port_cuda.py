@@ -30,7 +30,8 @@ def cuda():
 
 
 # (3, 7, 1030) and (40, 5, 1100) are outside the persistent plan (rows not
-# 16-byte; a 137.5 KB weight slice beside the state of 5 tiles): the per-step K1a. (13, 7, 1000) has one
+# 16-byte; a 137.5 KB weight slice beside the state of 5 tiles): the per-step
+# kernels (int8 at 1030 with a zero-padded last word of k). (13, 7, 1000) has one
 # batch tile a CTA, (64, 16, 1024) and (40, 9, 1024) pairs of tiles, the
 # second with a tile alone at the end
 @pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024), (3, 7, 1030),
@@ -38,10 +39,9 @@ def cuda():
 @pytest.mark.parametrize("state_quant", ["none", "bf16", "int8"])
 def test_kernel_matches_plain(cuda, state_quant, b, t, h):
     """Each inference kernel against its plain version; the launch counts
-    follow the route: one launch of ``lstm_f32h_persist`` where the plan
-    takes a "none" layer, else T launches of the per-step kernel."""
-    if state_quant == "int8" and h % 4:
-        h += 2  # the int8 kernel packs four k into a word
+    follow the route: one launch of ``lstm_f32h_persist``,
+    ``lstm_bf16h_persist`` or ``lstm_int8_persist`` where the plan takes the
+    layer, else T launches of the per-step kernel."""
     g = torch.Generator().manual_seed(0)
     xp = torch.randn(b, t, 4 * h, generator=g).to(cuda)
     w = (torch.randn(h, 4 * h, generator=g) / h ** 0.5).to(cuda)
@@ -53,13 +53,67 @@ def test_kernel_matches_plain(cuda, state_quant, b, t, h):
     y = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
     torch.cuda.synchronize()
     expect = dict.fromkeys(lstm_fused.launches, 0)
-    expect[variant] = 1 if variant == "none_persist" else t
+    persist = variant.endswith("_persist")
+    expect[variant] = 1 if persist else t
     assert lstm_fused.launches == expect
     ref = lstm_fused.lstm_layer_plain(xp, w, h0, c0, state_quant=state_quant)
     assert y.shape == (b, t, h) and torch.isfinite(y).all()
     assert (y - ref).abs().max().item() < ATOL[state_quant]
-    if variant == "none_persist":  # partials summed in a fixed order
-        assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0), y)
+    if variant == "int8_persist":  # exact int32 sums, the same float32 operations
+        assert torch.equal(y, ref)
+    if persist:  # partials summed in a fixed order
+        assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant), y)
+
+
+@pytest.mark.parametrize("b, t, h", [(64, 24, 1024), (3, 7, 1024), (13, 7, 1000), (40, 9, 1024),
+                                     (200, 4, 1024)])
+@pytest.mark.parametrize("state_quant", ["bf16", "int8"])
+def test_quant_persistent_kernels_match_the_per_step_ones(cuda, state_quant, b, t, h):
+    """``lstm_bf16h_persist`` / ``lstm_int8_persist`` against the per-step
+    kernel of the same variant (the plan refused for it): int8 bit for bit,
+    bf16 within the tensor cores' other fp32 summation order. (200, 4, 1024)
+    walks 13 (bf16) or 7 (int8) batch tiles a CTA in four groups."""
+    xp, w, h0, c0 = _train_inputs(b, t, h, cuda, seed=11)
+    lstm_fused.reset_launches()
+    y = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
+    plan, lstm_fused.persistent_plan = lstm_fused.persistent_plan, lambda *_a, **_k: None
+    try:
+        per_step = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
+    finally:
+        lstm_fused.persistent_plan = plan
+    torch.cuda.synchronize()
+    assert lstm_fused.launches[state_quant + "_persist"] == 1
+    assert lstm_fused.launches[state_quant] == t
+    if state_quant == "int8":
+        assert torch.equal(y, per_step)
+    else:
+        assert (y - per_step).abs().max().item() < ATOL["bf16"]
+
+
+def test_quant_persistent_entries_refuse_a_shape_outside_the_plan(cuda):
+    """The quantised C entries return a CUDA error, and launch nothing, for
+    rows that are not 16-byte or a grid the card cannot hold at once."""
+    from avvad_tpu_torch.ops._build import kernel_lib
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, t, h in ((2, 3, 1030), (2, 3, 16 * (sms + 1))):
+        assert lstm_fused.persistent_plan(b, h, sms) is None
+        xp, w, h0, c0 = _train_inputs(b, t, h, cuda)
+        y = torch.empty(b, t, h, device=cuda)
+        hx = torch.zeros(2, b, 2 * h + 32, dtype=torch.uint8, device=cuda)
+        bar = lstm_fused._barrier(cuda, b)
+        wq, ws = lstm_fused._quant_weights(w)
+        rcs = (kernel_lib().lstm_bf16h_persist(
+                   xp.data_ptr(), w.to(torch.bfloat16).data_ptr(), h0.data_ptr(),
+                   c0.clone().data_ptr(), y.data_ptr(), hx.data_ptr(), bar.data_ptr(), b, t, h,
+                   stream),
+               kernel_lib().lstm_int8_persist(
+                   xp.data_ptr(), wq.data_ptr(), ws.data_ptr(), h0.data_ptr(),
+                   c0.clone().data_ptr(), y.data_ptr(), hx.data_ptr(), bar.data_ptr(), b, t, h,
+                   stream))
+        torch.cuda.synchronize()
+        assert all(rc != 0 for rc in rcs) and not bar.any() and not hx.any()
 
 
 def test_inference_route_on_this_card(cuda):

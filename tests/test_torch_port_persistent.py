@@ -104,12 +104,15 @@ def test_plan_shrinks_with_the_shared_memory_and_the_card():
 def test_inference_route_follows_the_plan(b, h, sm_count):
     """``lstm_layer_fused`` launches ``lstm_f32h_persist`` for "none" exactly
     where the plan takes the shape and the inference kernel's shared memory
-    fits too; the quantised variants stay per step."""
+    fits too; "bf16" and "int8" go to ``lstm_bf16h_persist`` /
+    ``lstm_int8_persist`` where the plan takes the shape and their shared
+    memory fits, else stay per step."""
     plan = lstm_fused.persistent_plan(b, h, sm_count)
     got = lstm_fused.infer_variant("none", b, h, sm_count)
     assert got == ("none_persist" if plan is not None and plan["infer"] else "none")
-    assert lstm_fused.infer_variant("bf16", b, h, sm_count) == "bf16"
-    assert lstm_fused.infer_variant("int8", b, h, sm_count) == "int8"
+    for sq in ("bf16", "int8"):
+        fits = plan is not None and plan["infer_" + sq]
+        assert lstm_fused.infer_variant(sq, b, h, sm_count) == (sq + "_persist" if fits else sq)
     if plan is None:
         return
     gx, gy = plan["grid"]
