@@ -13,10 +13,13 @@
 //   lstm_bwd_persist       <- _lstm_bwd_kernel (:138) via _bwd_call (:314)
 //   lstm_bf16h_persist     <- _lstm_kernel_hbf16 (:71) via _fwd_quant_call (:232)
 //   lstm_int8_persist      <- _lstm_kernel_int8 (:92) via _fwd_quant_call (:232)
+//   lstm_probe_persist     <- the probe kernel of scripts/bench_lstm_probe.py
+//                             (:71, `_variant_kernel(mode).call` :102): the
+//                             f32h and bf16h kernels in the probe's modes
 // The Pallas kernels carry h, c, dh and dc in scratch across a sequential
 // grid; here a CTA carries them across a loop. Outside the plan the wrapper
 // routes to the per-step kernels lstm_f32h, lstm_bf16h, lstm_int8,
-// lstm_fwd_train_f32h (lstm_recurrence.cu) and lstm_bwd_f32h
+// lstm_fwd_train_f32h, lstm_probe (lstm_recurrence.cu) and lstm_bwd_f32h
 // (lstm_train.cu), which compute the same functions.
 //
 // What they compute (the arithmetic and its order are the per-step
@@ -267,14 +270,24 @@ __device__ __forceinline__ void store_partials(float* red, const float (&acc)[4]
   }
 }
 
+// The probe's cuts of the fp32-h inference frame (P1, the probe kernel of
+// scripts/bench_lstm_probe.py), compile-time variants of the kernels below:
+// kFull is the kernel itself; kGatesOnly cuts the exchange's loads and the
+// product (gates = x_proj; the weight slice is not loaded), keeping the
+// barrier round, the gate math and the stores; kMatmulOnly cuts the gate
+// math (h = the i columns' sums, the other three sums parked in a (B, 4H)
+// scratch so that the whole product stays, c unchanged).
+enum ProbeCut : int { kFull = 0, kGatesOnly = 2, kMatmulOnly = 3 };
+
 // Forward: CTA (x, r) owns hidden units [16 x, 16 x + 16) of the batch tiles
 // r, r + gridDim.y, ... Shared memory: W slice (H x 64 bf16), ring, partials,
 // c of the CTA's cells. TRAIN stores the residuals (c_seq, activated gates);
 // without it the kernel is the inference recurrence, y only, for grids in
 // which a CTA has a single batch tile (lstm_infer_persist_kernel takes the
-// others). The chunks of every tile of a step are one stream through the
-// ring, so a tile's first chunks load under the tile before.
-template <bool TRAIN>
+// others); `gates` is then the probe's scratch under kMatmulOnly. The chunks
+// of every tile of a step are one stream through the ring, so a tile's first
+// chunks load under the tile before.
+template <bool TRAIN, int CUT = kFull>
 __global__ void __launch_bounds__(NT, 1)
 lstm_fwd_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ w,
                         const float* __restrict__ h0, float* c, float* y,
@@ -291,7 +304,7 @@ lstm_fwd_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __res
   const int H4 = 4 * H, Kq = H >> 2;
 
   // W[k, g H + j0 + u] -> slot [k % 4][k / 4], column g U + u; 4 bf16 a load
-  for (int idx = tid; idx < H * 16; idx += NT) {
+  for (int idx = tid; CUT != kGatesOnly && idx < H * 16; idx += NT) {
     const int k = idx >> 4, p = idx & 15, g = p >> 2, u4 = (p & 3) * 4;
     uint2 v = make_uint2(0u, 0u);
     if (j0 + u4 < H)
@@ -326,7 +339,7 @@ lstm_fwd_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __res
     // a tile's first chunks load under the tile before.
     int fs = 0, fm = 0, fc = 0;
     auto fetch = [&]() {
-      if (fs < nstream) {
+      if (CUT != kGatesOnly && fs < nstream) {
         const int b0 = tile0 + fm * tile_step, k0 = fc * KC;
         if (4 * gcol < H - k0) {
           float* dst = ring + (fs % NSTAGE) * (BT * ASTRIDE) + grow * ASTRIDE + 4 * gcol;
@@ -362,7 +375,7 @@ lstm_fwd_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __res
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int cc = 0; cc < 8; ++cc) acc[i][cc] = 0.0f;
-      for (int chunk = 0; chunk < nchunk; ++chunk) {
+      for (int chunk = 0; CUT != kGatesOnly && chunk < nchunk; ++chunk) {
         const int slot = (m * nchunk + chunk) % NSTAGE;
         cp_async_wait<1>();  // this thread's part of the chunk has landed
         __syncthreads();     // everyone's has; everyone is done with the chunk before
@@ -372,16 +385,24 @@ lstm_fwd_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __res
                           wsm + (size_t)(k0 >> 2) * TL::NCOL + cq * 8, min(KC, H - k0) >> 2, q,
                           Kq, acc);
       }
-      store_partials<8>(red, acc);
-      __syncthreads();
+      if (CUT != kGatesOnly) {
+        store_partials<8>(red, acc);
+        __syncthreads();
+      }
       if (cell) {
         float gate[4];
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           float s = 0.0f;
-          for (int qi = 0; qi < TL::KG; ++qi)
+          for (int qi = 0; CUT != kGatesOnly && qi < TL::KG; ++qi)
             s += red[qi * (BT * TL::RS) + row * TL::RS + g * U + u];
-          gate[g] = __fadd_rn(x[g], s);
+          gate[g] = CUT == kGatesOnly ? x[g] : __fadd_rn(x[g], s);
+        }
+        if (CUT == kMatmulOnly) {
+          y[b * yrow + (size_t)t * H + j] = gate[0];
+#pragma unroll
+          for (int g = 1; g < 4; ++g) gates[(size_t)b * H4 + g * H + j] = gate[g];
+          continue;
         }
         const float ig = sigmoid_rn(gate[0]);
         const float fg = sigmoid_rn(gate[1]);
@@ -432,10 +453,11 @@ constexpr int RED_I_FLOATS = KG_I * PAIR * Tile<8>::RS;
 // partials through shared memory by the cell's owner in a fixed order; all
 // 256 threads own a cell of the pair. Shared memory: W slice (H x 64 bf16),
 // ring, partials, c of the CTA's cells.
+template <int CUT = kFull>
 __global__ void __launch_bounds__(NT, 1)
 lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ w,
-                          const float* __restrict__ h0, float* c, float* y, unsigned* bar,
-                          int B, int T, int H) {
+                          const float* __restrict__ h0, float* c, float* y,
+                          float* __restrict__ scratch, unsigned* bar, int B, int T, int H) {
   typedef Tile<8> TL;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -447,7 +469,7 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
   const int H4 = 4 * H, Kq = H >> 2;
 
   // W[k, g H + j0 + u] -> slot [k % 4][k / 4], column g U + u; 4 bf16 a load
-  for (int idx = tid; idx < H * 16; idx += NT) {
+  for (int idx = tid; CUT != kGatesOnly && idx < H * 16; idx += NT) {
     const int k = idx >> 4, p = idx & 15, g = p >> 2, u4 = (p & 3) * 4;
     uint2 v = make_uint2(0u, 0u);
     if (j0 + u4 < H)
@@ -479,7 +501,7 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
     const long long h_row = t == 0 ? (long long)H : yrow;
     int fs = 0, fp = 0, fc = 0;  // the next chunk to fetch: stream index, pair, chunk
     auto fetch = [&]() {
-      if (fs < nstream) {
+      if (CUT != kGatesOnly && fs < nstream) {
         const int k0 = fc * KCI;
         if (4 * gcol < H - k0) {
           float* dst = ring + (fs % NSTAGE) * (PAIR * AST_I) + 4 * gcol;
@@ -515,7 +537,7 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int cc = 0; cc < 8; ++cc) acc[i][cc] = 0.0f;
-      for (int chunk = 0; chunk < nchunk; ++chunk) {
+      for (int chunk = 0; CUT != kGatesOnly && chunk < nchunk; ++chunk) {
         const int slot = (pr * nchunk + chunk) % NSTAGE;
         cp_async_wait<1>();  // this thread's part of the chunk has landed
         __syncthreads();     // everyone's has; everyone is done with the chunk before
@@ -551,20 +573,22 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
         }
       }
       // the warp's two k-groups by shuffle, then red[warp][row of the pair][column]
+      if (CUT != kGatesOnly) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) acc[i][cc] += __shfl_xor_sync(0xffffffffu, acc[i][cc], 16);
-      if (lane < 16) {
-        float* r = red + warp * (PAIR * TL::RS) + cq * 8;
+          for (int cc = 0; cc < 8; ++cc) acc[i][cc] += __shfl_xor_sync(0xffffffffu, acc[i][cc], 16);
+        if (lane < 16) {
+          float* r = red + warp * (PAIR * TL::RS) + cq * 8;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float4* pp = reinterpret_cast<float4*>(r + (rq + 2 * i) * TL::RS);
-          pp[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          pp[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+          for (int i = 0; i < 8; ++i) {
+            float4* pp = reinterpret_cast<float4*>(r + (rq + 2 * i) * TL::RS);
+            pp[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            pp[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
       if (cell) {
         float* cell_c = cst + m * (BT * U) + row * U + u;
         float gate[4];
@@ -572,9 +596,15 @@ lstm_infer_persist_kernel(const float* __restrict__ xp, const __nv_bfloat16* __r
         for (int g = 0; g < 4; ++g) {
           float s = 0.0f;
 #pragma unroll
-          for (int qi = 0; qi < KG_I; ++qi)
+          for (int qi = 0; CUT != kGatesOnly && qi < KG_I; ++qi)
             s += red[qi * (PAIR * TL::RS) + prow * TL::RS + g * U + u];
-          gate[g] = __fadd_rn(x[g], s);
+          gate[g] = CUT == kGatesOnly ? x[g] : __fadd_rn(x[g], s);
+        }
+        if (CUT == kMatmulOnly) {
+          y[b * yrow + (size_t)t * H + j] = gate[0];
+#pragma unroll
+          for (int g = 1; g < 4; ++g) scratch[(size_t)b * H4 + g * H + j] = gate[g];
+          continue;
         }
         const float ig = sigmoid_rn(gate[0]);
         const float fg = sigmoid_rn(gate[1]);
@@ -1105,6 +1135,36 @@ int launch(const void* kernel, int B, int H, SmemOf smem_of, void** args,
   return (int)cudaGetLastError();
 }
 
+// The fp32-h inference frame in one of the probe's cuts (kFull: K1a itself).
+// Grids in which a CTA walks two or more batch tiles run
+// lstm_infer_persist_kernel (tiles in pairs); where every CTA has one tile, a
+// pair would be half empty, and the training forward runs without its
+// residual stores. scratch: (B, 4H) f32 under kMatmulOnly, else unused.
+template <int CUT>
+int f32h_persist(const float* xp, const void* w, const float* h0, float* c, float* y,
+                 float* scratch, void* bar, int B, int T, int H, cudaStream_t stream) {
+  if (B < 1 || T < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  unsigned* barp = static_cast<unsigned*>(bar);
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int slices = row_slices(B, H, sms);
+  if (slices >= 1 && (B + BT - 1) / BT > slices) {
+    void* args[] = {&xp, &wb, &h0, &c, &y, &scratch, &barp, &B, &T, &H};
+    return launch(reinterpret_cast<const void*>(lstm_infer_persist_kernel<CUT>), B, H,
+                  [H](int b, int s) { return 128 * (size_t)H + smem_bytes_infer(b, s); }, args,
+                  stream);
+  }
+  float* none = nullptr;
+  void* args[] = {&xp, &wb, &h0, &c, &y, &none, &scratch, &barp, &B, &T, &H};
+  return launch(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<false, CUT>), B, H,
+                [H](int b, int s) { return 128 * (size_t)H + smem_bytes<8>(b, s); }, args,
+                stream);
+}
+
 }  // namespace
 
 // lstm_fwd_train_f32h's arguments and `bar`, zeroed 32-bit counters in device
@@ -1126,32 +1186,10 @@ extern "C" int lstm_fwd_train_persist(const float* xp, const void* w, const floa
 
 // The inference recurrence (lstm_f32h's arguments, batch-major) as one
 // cooperative launch a layer. `bar`: zeroed 32-bit counters, one a batch tile
-// of 8 rows (a row slice uses one). Grids in which a CTA walks two or more
-// batch tiles run lstm_infer_persist_kernel (tiles in pairs); where every CTA
-// has one tile, a pair would be half empty, and the training forward runs
-// without its residual stores.
+// of 8 rows (a row slice uses one).
 extern "C" int lstm_f32h_persist(const float* xp, const void* w, const float* h0, float* c,
                                  float* y, void* bar, int B, int T, int H, void* stream) {
-  if (B < 1 || T < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  unsigned* barp = static_cast<unsigned*>(bar);
-  int dev = 0, sms = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  const int slices = row_slices(B, H, sms);
-  if (slices >= 1 && (B + BT - 1) / BT > slices) {
-    void* args[] = {&xp, &wb, &h0, &c, &y, &barp, &B, &T, &H};
-    return launch(reinterpret_cast<const void*>(lstm_infer_persist_kernel), B, H,
-                  [H](int b, int s) { return 128 * (size_t)H + smem_bytes_infer(b, s); }, args,
-                  (cudaStream_t)stream);
-  }
-  float* none = nullptr;
-  void* args[] = {&xp, &wb, &h0, &c, &y, &none, &none, &barp, &B, &T, &H};
-  return launch(reinterpret_cast<const void*>(lstm_fwd_persist_kernel<false>), B, H,
-                [H](int b, int s) { return 128 * (size_t)H + smem_bytes<8>(b, s); }, args,
-                (cudaStream_t)stream);
+  return f32h_persist<kFull>(xp, w, h0, c, y, nullptr, bar, B, T, H, (cudaStream_t)stream);
 }
 
 // lstm_bwd_f32h's arguments and `bar` as above. One launch: the T reverse
@@ -1199,4 +1237,30 @@ extern "C" int lstm_int8_persist(const float* xp, const void* wq, const float* w
   return launch(reinterpret_cast<const void*>(lstm_quant_persist_kernel<true, UQ_INT8>), B, H,
                 [H](int b, int s) { return smem_bytes_quant<UQ_INT8>(b, H, s, true); }, args,
                 (cudaStream_t)stream, UQ_INT8);
+}
+
+// P1, the probe (scripts/bench_lstm_probe.py), on the persistent frame: one
+// cooperative launch a layer of the kernel that serving runs at the shape, in
+// one of the probe's modes as a compile-time variant. lstm_f32h_persist's
+// arguments with a (B, 4H) f32 scratch (mode 3 only) and, for mode 1, the
+// exchange hx of lstm_bf16h_persist. mode 0 "full": lstm_f32h_persist
+// itself; 1 "h_bf16": lstm_bf16h_persist itself (w the bf16 weight, hx zeroed);
+// 2 "gates_only": kGatesOnly (w is not read); 3 "matmul_only": kMatmulOnly
+// (c is not touched). A shape outside the plan is an error.
+extern "C" int lstm_probe_persist(const float* xp, const void* w, const float* h0, float* c,
+                                  float* y, float* scratch, void* hx, void* bar, int B, int T,
+                                  int H, int mode, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case 0:
+      return f32h_persist<kFull>(xp, w, h0, c, y, nullptr, bar, B, T, H, st);
+    case 1:
+      return lstm_bf16h_persist(xp, w, h0, c, y, hx, bar, B, T, H, stream);
+    case 2:
+      return f32h_persist<kGatesOnly>(xp, w, h0, c, y, nullptr, bar, B, T, H, st);
+    case 3:
+      return f32h_persist<kMatmulOnly>(xp, w, h0, c, y, scratch, bar, B, T, H, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

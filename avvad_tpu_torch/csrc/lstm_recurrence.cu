@@ -311,7 +311,9 @@ extern "C" int lstm_fwd_train_f32h(const float* xp, const void* w, const float* 
                                (cudaStream_t)stream);
 }
 
-// The probe (scripts/bench_lstm_probe.py): lstm_f32h's arguments, a (B, 4H)
+// The probe (scripts/bench_lstm_probe.py) per step, for shapes outside the
+// persistent plan (lstm_probe_persist in lstm_persistent.cu takes the
+// others): lstm_f32h's arguments, a (B, 4H)
 // f32 scratch that only mode 3 writes, and mode 0 "full", 1 "h_bf16",
 // 2 "gates_only" (w is not read), 3 "matmul_only" (c is not touched).
 extern "C" int lstm_probe(const float* xp, const void* w, const float* h0, float* c,

@@ -210,9 +210,31 @@ class _StemGray(nn.Module):
         self.weight = nn.Parameter(torch.empty(64, 3, 7, 7))
         lecun_normal_(self.weight, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
+        """x (N, 1, H, W) -> (N, 64, H', W'). ``channels_last``: the output
+        channels-last, the layout the fused int8 path's epilogue reads. On
+        the card the input and the kernel are restrided to channels-last
+        (one input channel: the same bytes, no copy), so that cuDNN writes
+        the output channels-last itself. On the CPU the NCHW convolution's
+        output is copied into that layout: oneDNN's channels-last float32
+        convolution sums in another order, and the requantisation after it
+        would turn those ulps into one-LSB flips against the JAX package."""
         k1 = self.weight.sum(dim=1, keepdim=True)
-        return _conv(x, k1, 2, 3, self.dtype)
+        if not channels_last:
+            return _conv(x, k1, 2, 3, self.dtype)
+        if not x.is_cuda:
+            return _conv(x, k1, 2, 3, self.dtype).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(_one_channel_last(x.to(self.dtype)),
+                        _one_channel_last(k1.to(self.dtype)), stride=2, padding=3)
+
+
+def _one_channel_last(t: torch.Tensor) -> torch.Tensor:
+    """(N, 1, H, W) -> the same bytes with channels-last strides."""
+    t = t.contiguous()
+    n, c, h, w = t.shape
+    if c != 1:
+        raise ValueError(f"expected one channel, got {tuple(t.shape)}")
+    return t.as_strided(t.shape, (h * w, 1, w, 1))
 
 
 class ResNet18(nn.Module):
@@ -287,7 +309,7 @@ class ResNet18(nn.Module):
                 x = block(x)
             return x.mean(dim=(2, 3)).float()
         if self.stages_pallas:
-            return self._fused_int8(self.conv1(x))
+            return self._fused_int8(self.conv1(x, channels_last=True))
         mode = self.quant_mode
         y = F.relu(_bn_int8(self.bn1, self.conv1(x)))
         x_q, scale = act_quant(y, self.q_stem, mode)
@@ -297,8 +319,8 @@ class ResNet18(nn.Module):
         return (xs[0].float() * xs[1]).mean(dim=(2, 3))
 
     def _fused_int8(self, stem: torch.Tensor) -> torch.Tensor:
-        """Stem conv output -> stem epilogue kernel (K3) -> 8 fused block
-        kernels (K2) -> pooled features (resnet.py:411-447)."""
+        """Stem conv output (channels-last) -> stem epilogue kernel (K3) -> 8
+        fused block kernels (K2) -> pooled features (resnet.py:411-447)."""
         if self.quant_mode != "static":
             raise ValueError("stages_pallas requires quant_mode='static'")
         if self.training:

@@ -48,12 +48,18 @@ SIGNATURES = {
     "lstm_int8_persist": [_P] * 8 + [_I] * 3 + [_P],
     # xp, w, h0, c, y, scratch (B, 4H), B, T, H, mode, stream
     "lstm_probe": [_P] * 6 + [_I] * 4 + [_P],
+    # the same on the persistent frame, with the exchange and the barriers'
+    # counters after scratch
+    "lstm_probe_persist": [_P] * 8 + [_I] * 4 + [_P],
     # x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, out,
     # N, H, W, Cin, Cout, stride, frames per block, ring slots, shared
     # memory bytes (the three from conv_fused.block_plan), stream
     "int8_basic_block": [_P] * 12 + [_I] * 9 + [_P],
     # x, a, b, out, N, C, strides (N, C, H, W) in elements, is_bf16, stream
     "stem_epilogue_pool": [_P] * 4 + [_I] * 7 + [_P],
+    # x (channels-last), a, b, out, N, C, channels of a unit, ring slots
+    # (the two from stem_fused.nhwc_plan), is_bf16, stream
+    "stem_epilogue_pool_nhwc": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -9,7 +9,7 @@ kernels and the two training kernels are one cooperative launch per layer
 grid barriers separate the steps) wherever ``persistent_plan`` fits the
 shape on the card; elsewhere they are the per-step kernels of
 ``csrc/lstm_recurrence.cu`` and ``csrc/lstm_train.cu``, one launch per
-time step, as the probe kernel always is.
+time step. The probe kernel takes the same two routes.
 The Pallas batch padding to 8/32 rows is a TPU tiling rule: rows are
 independent, so the port runs the batch as given.
 
@@ -28,7 +28,8 @@ variant              kernel                      replaces (avvad_tpu/ops/lstm_pa
 "bwd_persist"        ``lstm_bwd_persist``        ``_lstm_bwd_kernel`` via ``_bwd_call``
 "fwd_train"          ``lstm_fwd_train_f32h``     the same, per step: shapes outside the plan
 "bwd"                ``lstm_bwd_f32h``           the same, per step: shapes outside the plan
-"probe"              ``lstm_probe``              the probe kernel of scripts/bench_lstm_probe.py:71
+"probe_persist"      ``lstm_probe_persist``      the probe kernel of scripts/bench_lstm_probe.py:71
+"probe"              ``lstm_probe``              the same, per step: shapes outside the plan
 ===================  ==========================  ======================================
 
 Under autograd (grad enabled and an input that requires it)
@@ -41,7 +42,9 @@ throughout; the JAX kernels take time-major arrays.
 
 ``lstm_probe`` is the measuring tool's kernel (``tools/lstm_probe.py``):
 the recurrence in four modes that take a step's cost apart ("full",
-"h_bf16", "gates_only", "matmul_only"; ``PROBE_MODES``).
+"h_bf16", "gates_only", "matmul_only"; ``PROBE_MODES``), as compile-time
+variants of the inference kernel that serving runs at the shape
+(``probe_variant``).
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ KERNEL_NAMES = {"none_persist": "lstm_f32h_persist",
                 "fwd_train_persist": "lstm_fwd_train_persist",
                 "bwd_persist": "lstm_bwd_persist",
                 "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
-                "probe": "lstm_probe"}
+                "probe_persist": "lstm_probe_persist", "probe": "lstm_probe"}
 
 # Kernel launches per variant, counted by the CUDA wrappers only. A
 # persistent kernel is one launch a layer, a per-step one T (or T + 1).
@@ -191,6 +194,16 @@ def infer_variant(state_quant: str, b: int, h: int, sm_count: int) -> str:
     fits = plan is not None and plan[{"none": "infer", "bf16": "infer_bf16",
                                       "int8": "infer_int8"}[state_quant]]
     return state_quant + "_persist" if fits else state_quant
+
+
+def probe_variant(mode: str, b: int, h: int, sm_count: int) -> str:
+    """The probe's route for a (B, ., H) layer on a card with ``sm_count``
+    SMs: "probe_persist" where the persistent inference kernel whose
+    arithmetic the mode takes apart runs the shape (``lstm_bf16h_persist``
+    for "h_bf16", ``lstm_f32h_persist`` for the others: ``infer_variant``),
+    else the per-step "probe"."""
+    sq = "bf16" if mode == "h_bf16" else "none"
+    return "probe_persist" if infer_variant(sq, b, h, sm_count) == sq + "_persist" else "probe"
 
 
 def _barrier(dev: torch.device, b: int) -> torch.Tensor:
@@ -352,11 +365,15 @@ def _on_device(name: str, a: torch.Tensor, dev: torch.device) -> None:
 _COOPERATIVE_TOO_LARGE = 720
 
 
-def _launch_error(variant: str, rc: int, dev: torch.device, b: int, h: int) -> str:
-    """What to tell the caller when a C entry point returned ``rc``."""
+def _launch_error(variant: str, rc: int, dev: torch.device, b: int, h: int,
+                  geometry: str | None = None) -> str:
+    """What to tell the caller when a C entry point returned ``rc``;
+    ``geometry``: the variant whose grid the launch had, where not its own
+    (the persistent probe runs the grid of "none_persist" or "bf16_persist")."""
     msg = f"{KERNEL_NAMES[variant]} launch failed: cudaError {rc}"
     if not variant.endswith("_persist"):
         return msg
+    variant = geometry or variant
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = persistent_plan(b, h, sms)
     if plan is None:
@@ -376,18 +393,18 @@ def _launch_error(variant: str, rc: int, dev: torch.device, b: int, h: int) -> s
     return msg
 
 
-def _run(variant: str, dev: torch.device, fn, *args) -> None:
+def _run(variant: str, dev: torch.device, fn, *args, geometry: str | None = None) -> None:
     """Call a C entry point with the tensors' card current and the stream
     last; raise on its CUDA error (no second route). The arguments end
-    ``B, T, H``."""
+    ``B, T, H`` (or ``B, T, H, mode``)."""
     # temporaries the caller frees live on this stream too, so the caching
     # allocator reuses their memory only after the queued launches
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):  # the C library launches on the current card
         rc = fn(*args, stream)
     if rc != 0:
-        b, _, h = args[-3:]
-        raise RuntimeError(_launch_error(variant, rc, dev, b, h))
+        b, _, h = args[-4:-1] if variant.startswith("probe") else args[-3:]
+        raise RuntimeError(_launch_error(variant, rc, dev, b, h, geometry))
 
 
 def _launch(x_proj, w_hh, h0, c0, variant):
@@ -547,13 +564,17 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
                h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
                mode: str = "full") -> torch.Tensor:
     """The probe kernel: one layer's recurrence in one of ``PROBE_MODES``
-    -> y (B, T, H), as ``lstm_probe_plain``. It is the per-step ``lstm_f32h``
-    / ``lstm_bf16h`` instantiation taken apart, whatever kernel
-    ``lstm_layer_fused`` routes the shape to. Batch-major like the other
-    wrappers here (the TPU kernel is time-major). A CUDA ``x_proj``
-    launches ``lstm_probe`` T times, counted under ``launches["probe"]``
-    whatever the mode, or raises; a CPU one runs the plain version. Not
-    for autograd."""
+    -> y (B, T, H), as ``lstm_probe_plain``. It takes apart the inference
+    kernel that ``lstm_layer_fused`` runs at the shape (``probe_variant``):
+    where ``persistent_plan`` takes it, ``lstm_probe_persist``, one
+    cooperative launch a layer, counted under ``launches["probe_persist"]``,
+    whose "full" is ``lstm_f32h_persist`` and "h_bf16" ``lstm_bf16h_persist``
+    bit for bit, and whose other modes are cuts of the fp32-h kernel;
+    elsewhere the per-step ``lstm_probe`` (the ``lstm_f32h`` / ``lstm_bf16h``
+    instantiation), T launches counted under ``launches["probe"]``.
+    Batch-major like the other wrappers here (the TPU kernel is
+    time-major). A CUDA ``x_proj`` launches the kernel or raises; a CPU one
+    runs the plain version. Not for autograd."""
     _check_probe_args(x_proj, w_hh, h0, c0, mode)
     if not x_proj.is_cuda:
         return lstm_probe_plain(x_proj, w_hh, h0, c0, mode)
@@ -576,10 +597,21 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
     # "matmul_only" parks the three gate sums it does not use here, so that
     # the whole (B, H) x (H, 4H) product stays in the kernel
     scratch = torch.empty(b, h4, device=dev)
-    _run("probe", dev, kernel_lib().lstm_probe, x_proj.data_ptr(), w.data_ptr(),
-         h0.data_ptr(), c.data_ptr(), y.data_ptr(), scratch.data_ptr(), b, t, h,
-         PROBE_MODES.index(mode))
-    launches["probe"] += t
+    ptrs = [x_proj.data_ptr(), w.data_ptr(), h0.data_ptr(), c.data_ptr(), y.data_ptr(),
+            scratch.data_ptr()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if probe_variant(mode, b, h, sms) == "probe":
+        _run("probe", dev, kernel_lib().lstm_probe, *ptrs, b, t, h, PROBE_MODES.index(mode))
+        launches["probe"] += t
+        return y
+    # "h_bf16"'s exchange of the rounded h, as lstm_bf16h_persist's
+    hx = torch.zeros(2 if mode == "h_bf16" else 0, b, quant_row_bytes(h, "bf16_persist"),
+                     dtype=torch.uint8, device=dev)
+    bar = _barrier(dev, b)
+    _run("probe_persist", dev, kernel_lib().lstm_probe_persist, *ptrs, hx.data_ptr(),
+         bar.data_ptr(), b, t, h, PROBE_MODES.index(mode),
+         geometry="bf16_persist" if mode == "h_bf16" else "none_persist")
+    launches["probe_persist"] += 1
     return y
 
 

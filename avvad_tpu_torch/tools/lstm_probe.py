@@ -1,23 +1,27 @@
 """LSTM recurrence micro-probe: where does a layer's time go?
 
-Counterpart of scripts/bench_lstm_probe.py. It splits the per-step cost of
-the LSTM recurrence kernel into its parts, on the card:
+Counterpart of scripts/bench_lstm_probe.py. It splits the cost of a step of
+the LSTM inference kernel that serving runs at the shape into its parts, on
+the card. Where ``persistent_plan`` takes the shape (the default one does)
+that is the persistent kernel, one cooperative launch a layer
+(``lstm_probe_persist``), and the modes are compile-time variants of it:
 
-  full        the shipped arithmetic (fp32 h, bf16 W_hh), as the per-step
-              ``lstm_f32h`` runs it: one launch a time step
+  full        the shipped arithmetic (fp32 h, bf16 W_hh): ``lstm_f32h_persist``
+              itself
   matmul_only gate math removed (h = the i columns of the product): the
-              staging of h, the contraction and the reduction
-  gates_only  product removed (gates = x_proj only): launch, the sigmoid /
-              tanh / elementwise cost and the streaming of x_proj and y
-  h_bf16      h cast to bf16 before the dot (``lstm_bf16h``'s arithmetic)
+              barrier round, the exchange's loads of h, the contraction and
+              the reduction
+  gates_only  exchange loads and product removed (gates = x_proj only): the
+              barrier round, the sigmoid / tanh / elementwise cost and the
+              streaming of x_proj and y
+  h_bf16      h rounded to bf16 for the product: ``lstm_bf16h_persist``
+              itself (the tensor-core kernel)
 
-then times the serving op ``lstm_layer_fused`` for state_quant none / bf16 /
-int8, and the log-power frontend on the direct route against ``hop_dft`` at
-the serving shape. The probe kernel goes on timing the per-step
-instantiations; the serving op is the persistent ``lstm_f32h_persist``,
-``lstm_bf16h_persist`` or ``lstm_int8_persist`` (one launch a layer) where
-``persistent_plan`` takes the shape, so its times beside ``full`` and
-``h_bf16`` are what the redesigns gained.
+Outside the plan the modes are those of the per-step ``lstm_f32h`` /
+``lstm_bf16h`` instantiation, one launch a time step. Then it times the
+serving op ``lstm_layer_fused`` for state_quant none / bf16 / int8 (the same
+route), and the log-power frontend on the direct route against ``hop_dft``
+at the serving shape.
 
     python -m avvad_tpu_torch.tools.lstm_probe [--b 64] [--t 512] [--h 1024]
         [--iters 30] [--modes full,matmul_only,gates_only,h_bf16] [--device cpu]
@@ -78,7 +82,8 @@ def run(b: int = 64, t: int = 512, h: int = 1024, iters: int = 30,
         device: str | torch.device | None = None, out=print) -> dict:
     """Time everything and print one line each through ``out`` ->
     {"probe": {mode: ms}, "probe_launches": {mode: kernel launches made for
-    that mode, 0 on the CPU}, "h_bf16_vs_full": max |dh| or None,
+    that mode, persistent or per step, 0 on the CPU}, "h_bf16_vs_full":
+    max |dh| or None,
     "lstm_layer_fused": {state_quant: ms}, "frontend": {"direct": ms,
     "hop_dft": ms}}."""
     dev = resolve_device(device)
@@ -94,8 +99,9 @@ def run(b: int = 64, t: int = 512, h: int = 1024, iters: int = 30,
     res = {"probe": {}, "probe_launches": {}, "h_bf16_vs_full": None,
            "lstm_layer_fused": {}, "frontend": {}}
     base = None
+    probe_count = lambda: launches["probe"] + launches["probe_persist"]  # noqa: E731
     for mode in modes:
-        before = launches["probe"]
+        before = probe_count()
         ms = _timeit(lambda: lstm_probe(xp, w, h0, c0, mode), iters, dev)
         res["probe"][mode] = ms
         note = (f"  {flops / (ms * 1e-3) / 1e12:6.2f} TFLOP/s"
@@ -107,7 +113,7 @@ def run(b: int = 64, t: int = 512, h: int = 1024, iters: int = 30,
             d = (lstm_probe(xp, w, h0, c0, mode) - base).abs().max().item()
             res["h_bf16_vs_full"] = d
             out(f"             h_bf16 max|dh| vs full: {d:.3e}")
-        res["probe_launches"][mode] = launches["probe"] - before
+        res["probe_launches"][mode] = probe_count() - before
     for sq in STATE_QUANTS:
         ms = _timeit(lambda: lstm_layer_fused(xp, w, state_quant=sq), iters, dev)
         res["lstm_layer_fused"][sq] = ms

@@ -20,12 +20,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    routes are timed in turns at the main path's shape (the per-step route
    forced);
 4. the int8 tower's kernels against their plain versions: the stem
-   epilogue (K3) on bf16 NCHW stem output and the fused BasicBlock (K2) at
-   each of the 8 trunk geometries with seeded int8 inputs and random folded
+   epilogue (K3) on both routes, stem_epilogue_pool_nhwc on channels-last
+   stem output (bf16, as serving gives it, and fp32) and stem_epilogue_pool
+   on NCHW (bf16), a of both signs, and the fused BasicBlock (K2) at each of
+   the 8 trunk geometries with seeded int8 inputs and random folded
    parameters, bit for bit at the main path's frame count (64 x 246 =
-   15,744) and a ragged one (37); CUDA-event times of kernel and plain
-   version, bounds, and one line per block with its plan, TOP/s and share
-   of the int8 peak;
+   15,744) and a ragged one (37); CUDA-event times of kernel (K3's two
+   routes in turns) and plain version, bounds, and one line per block with
+   its plan, TOP/s and share of the int8 peak;
 5. the full-width AV serving step with the float ResNet-18 tower (MCB 1024,
    2 x LSTM 1024, bf16 model, B=64, T=512, 30 fps unique frames) for each
    LSTM state_quant (2 launches of the persistent K1a, K1c or K1b), with
@@ -35,11 +37,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    edges, and one more step under torch.profiler for the device's idle
    share and top kernels (one {"profile": ...} line per state_quant);
 6. the same step with the calibrated static-int8 tower on the fused
-   kernels (K3 once and K2 eight times per tower pass), calibrated with the
-   port's ``calibrate`` on 2 utterances, for state_quant none and int8:
-   launch counts, outputs, the step against the same step with the plain
-   K2/K3 versions, times, stages and a profile line; and the int8 tower's
-   features against the fp32 float tower's on the same frames;
+   kernels (the stem conv writing channels-last, then the channels-last K3
+   once and K2 eight times per tower pass), calibrated with the port's
+   ``calibrate`` on 2 utterances, for state_quant none and int8: launch
+   counts, outputs, the step against the same step with the plain K2/K3
+   versions, times, stages and a profile line with the stem's split (conv,
+   layout transforms, K3); the stem's two routes alone on the step's
+   frames (conv and K3 of each, timed in turns; the conv kernels of each
+   under torch.profiler); and the int8 tower's features against the fp32
+   float tower's on the same frames;
 7. the training kernels against their plain versions: K1d (forward with
    residuals), K1e (reverse-time backward), and the four gradients of the
    autograd Function that joins them. At the training shape (B=16, T=512,
@@ -69,20 +75,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the AV model with a checkpoint round trip into a temporary directory
    under build/: the restored state equals the saved one, and one more
    step from each agrees;
-10. the probe kernel (P1) in its four modes against its plain version at
-    the probe's shape (B=64, T=512, H=1024) and the ragged one, on the
-    probe's own draws (x_proj x 0.1, W_hh x 0.02); CUDA-event times of the
-    kernel, the plain version and, for "full" and "h_bf16", one cuDNN
-    torch.nn.LSTM layer; bounds from the shapes;
-11. the probe tool's main() in-process at its default shape, with launch
-    counters read around it: its lines, and one {"probe_tool": ...} line;
+10. the probe kernel (P1) in its four modes against its plain version, on
+    the probe's own draws (x_proj x 0.1, W_hh x 0.02): on the persistent
+    frame (lstm_probe_persist, one launch a layer) at the probe's shape
+    (B=64, T=512, H=1024) and the ragged one, "full" and "h_bf16" bit for
+    bit against lstm_f32h_persist and lstm_bf16h_persist; per step
+    (lstm_probe) outside the plan (B=3, T=7, H=1030) and, the route forced,
+    at the probe's shape; CUDA-event times of both routes in turns, the
+    plain version and, for "full" and "h_bf16", one cuDNN torch.nn.LSTM
+    layer; bounds from the shapes; the split of a step of each route;
+11. the probe tool's main() in-process at its default shape (the persistent
+    P1) and at a shape outside the plan (the per-step P1), with launch
+    counters read around each: its lines, and one {"probe_tool": ...} and
+    one {"probe_tool_outside_plan": ...} line;
 12. the hop-block and split-radix DFT routes against the direct one at the
     serving shape (B=64, T=512), and the three frontends' times;
 13. streaming at full width, 32 streams x 16 frames a tick, 40 ticks:
     MultiStreamVAD (AudioVAD, 2 x LSTM 1024) on the frames wire and on the
     int16 span wire with the hop-block DFT; MultiStreamAVVAD (30 fps uint8
     camera frames, int16 span wire) with the bf16 float tower and with the
-    calibrated static-int8 tower (K3 once and K2 eight times a tick, launch
+    calibrated static-int8 tower (the channels-last K3 once and K2 eight
+    times a tick, launch
     counters read around a tick). Probabilities checked; streams 0 and 1
     against a solo StreamingVAD / StreamingAVVAD fed the same data; the
     int8-tower ticks against the same ticks with the plain K2/K3;
@@ -91,7 +104,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
     each;
-14. one {"kernels": [...]} line (16 rows), then the ok line with the device.
+14. one {"kernels": [...]} line (21 rows), then the card's name and power
+    limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
 
@@ -379,42 +393,81 @@ def k2_bound(n: int, h: int, stride: int, cin: int, cout: int) -> tuple[float, f
     return 2.0 * macs, n * h * h * cin + w_bytes + v_bytes + n * ho * ho * cout
 
 
+def stem_input(n: int, g: torch.Generator, layout: str, dtype=torch.bfloat16) -> torch.Tensor:
+    """Seeded (N, 64, 34, 34) stem conv output on the card, in ``layout``."""
+    x = (torch.randn(n, 34, 34, 64, generator=g) * 3).to("cuda", dtype).permute(0, 3, 1, 2)
+    return x.contiguous() if layout == "nchw" else x
+
+
 def int8_kernel_phase(n_frames: int) -> dict:
-    """K3 and K2 against their plain versions at the main path's frame count
-    and a ragged one, with CUDA-event times and bounds -> kernel rows."""
+    """K3 (both routes) and K2 against their plain versions at the main
+    path's frame count and a ragged one, with CUDA-event times and bounds ->
+    kernel rows."""
     from avvad_tpu_torch.ops import conv_fused, stem_fused
 
-    # K3 on the bf16 model's stem output: (N, 64, 34, 34) bf16, cuDNN's NCHW
-    errs, g = [], torch.Generator().manual_seed(5)
-    a = (torch.rand(64, generator=g) * 20 + 5).cuda()
-    b = (torch.randn(64, generator=g) * 10).cuda()
-    for n in (n_frames, N_RAGGED):
-        x = (torch.randn(n, 64, 34, 34, generator=g) * 3).to("cuda", torch.bfloat16)
-        y = stem_fused.stem_epilogue_pool_quant(x, a, b)
-        torch.cuda.synchronize()
-        errs.append(lsb_diff(y, stem_fused.stem_epilogue_plain(x, a, b)))
-        print(f"stem_epilogue_pool N={n}: max {errs[-1][0]} LSB, "
-              f"{errs[-1][1]:.2e} of outputs differ")
-        if errs[-1][0] > LSB_TOL or errs[-1][1] >= FLIP_TOL:
-            raise RuntimeError(f"stem_epilogue_pool disagrees with plain: {errs[-1]}")
-    x = (torch.randn(n_frames, 64, 34, 34, generator=g) * 3).to("cuda", torch.bfloat16)
-    ms = cuda_ms(lambda: stem_fused.stem_epilogue_pool_quant(x, a, b), 10)
-    plain_ms = cuda_ms(lambda: stem_fused.stem_epilogue_plain(x, a, b), 2)
+    # K3 on the stem conv's output, (N, 64, 34, 34): channels-last, as the
+    # int8 tower's conv writes it (bf16, and fp32), and NCHW, the other
+    # route; a of both signs (the channels-last kernel pools on sign-flipped
+    # values before it quantises)
+    g = torch.Generator().manual_seed(5)
+    a = ((torch.rand(64, generator=g) * 20 + 5) * (torch.rand(64, generator=g) - 0.25).sign()).cuda()
+    b = (torch.randn(64, generator=g) * 10 + 20).cuda()
+    errs = {stem_fused.NHWC_KERNEL_NAME: [], stem_fused.KERNEL_NAME: []}
+    for layout, dtype in (("channels_last", torch.bfloat16), ("channels_last", torch.float32),
+                          ("nchw", torch.bfloat16)):
+        name = stem_fused.KERNEL_NAME if layout == "nchw" else stem_fused.NHWC_KERNEL_NAME
+        for n in (n_frames, N_RAGGED):
+            x = stem_input(n, g, layout, dtype)
+            stem_fused.reset_launches()
+            y = stem_fused.stem_epilogue_pool_quant(x, a, b)
+            torch.cuda.synchronize()
+            if stem_fused.launches[name] != 1 or sum(stem_fused.launches.values()) != 1:
+                raise RuntimeError(f"K3 {layout}: launches {stem_fused.launches}")
+            errs[name].append(lsb_diff(y, stem_fused.stem_epilogue_plain(x, a, b)))
+            print(f"{name} ({layout} {str(dtype)[6:]}) N={n}: max {errs[name][-1][0]} LSB, "
+                  f"{errs[name][-1][1]:.2e} of outputs differ")
+            if errs[name][-1] != (0, 0.0):  # the same float32 operations: bit for bit
+                raise RuntimeError(f"{name} disagrees with plain: {errs[name][-1]}")
+            del x, y
+    # the NCHW route's launches: one call of the op on NCHW input, the
+    # counters at 0 before (no model path gives it NCHW input now)
+    x_nchw = stem_input(n_frames, g, "nchw")
+    stem_fused.reset_launches()
+    stem_fused.stem_epilogue_pool_quant(x_nchw, a, b)
+    torch.cuda.synchronize()
+    nchw_launches = stem_fused.launches[stem_fused.KERNEL_NAME]
+    x_cl = x_nchw.contiguous(memory_format=torch.channels_last)
+    # NCHW, channels-last, channels-last, NCHW: in turns on one card
+    k3 = lambda x: stem_fused.stem_epilogue_pool_quant(x, a, b)  # noqa: E731
+    times = {"nchw": [cuda_ms(lambda: k3(x_nchw), 10)], "cl": []}
+    times["cl"] += [cuda_ms(lambda: k3(x_cl), 10), cuda_ms(lambda: k3(x_cl), 10)]
+    times["nchw"].append(cuda_ms(lambda: k3(x_nchw), 10))
+    plain_ms = {"nchw": cuda_ms(lambda: stem_fused.stem_epilogue_plain(x_nchw, a, b), 2),
+                "cl": cuda_ms(lambda: stem_fused.stem_epilogue_plain(x_cl, a, b), 2)}
     # each input read once (bf16) and each int8 output written once; fp32
     # operations: multiply, add, max, round, min per input, 8 maxima per output
-    nbytes = x.numel() * 2 + 2 * 64 * 4 + n_frames * 17 * 17 * 64
-    ops = 5.0 * x.numel() + 8.0 * n_frames * 17 * 17 * 64
+    nbytes = x_cl.numel() * 2 + 2 * 64 * 4 + n_frames * 17 * 17 * 64
+    ops = 5.0 * x_cl.numel() + 8.0 * n_frames * 17 * 17 * 64
     bound_ms = 1e3 * max(nbytes / MEM_BW, ops / PEAK["none"])
     bound_by = "bytes" if nbytes / MEM_BW >= ops / PEAK["none"] else "operations"
-    print(f"stem_epilogue_pool N={n_frames}: kernel {ms:.3f} ms, plain {plain_ms:.3f}, "
-          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB at {MEM_BW_NAME})")
-    rows = {"k3": {"name": stem_fused.KERNEL_NAME, "route": "cuda",
-                   "source": "avvad_tpu_torch/csrc/stem_epilogue_pool.cu",
-                   "replaces": "avvad_tpu/ops/stem_pallas.py:72", "launches": None,
-                   "max_abs_err": max(e[0] for e in errs), "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}}
-    del x
+    plan = stem_fused.nhwc_plan(64, 2)
+    rows = {}
+    for key, route, name in (("k3", "nchw", stem_fused.KERNEL_NAME),
+                             ("k3_nhwc", "cl", stem_fused.NHWC_KERNEL_NAME)):
+        ms = min(times[route])
+        print(f"{name} N={n_frames} (bf16): kernel {ms:.3f} ms (reps "
+              f"{[round(t, 3) for t in times[route]]}; {bound_ms / ms:.3f} of the bound), plain "
+              f"{plain_ms[route]:.3f}, bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB "
+              f"at {MEM_BW_NAME})" + (f"; plan: {plan['slots']} x {plan['chunk_bytes']} B ring, "
+                                     f"{plan['smem_bytes']} B shared a CTA" if route == "cl" else ""))
+        rows[key] = {"name": name, "route": "cuda",
+                     "source": "avvad_tpu_torch/csrc/stem_epilogue_pool.cu",
+                     "replaces": "avvad_tpu/ops/stem_pallas.py:72",
+                     "launches": nchw_launches if route == "nchw" else None,
+                     "max_abs_err": max(e[0] for e in errs[name]), "ms": ms,
+                     "plain_ms": plain_ms[route], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+    del x_nchw, x_cl
 
     # K2 at the 8 trunk geometries
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0}
@@ -505,9 +558,29 @@ def timed_step(fn, wave, video, marks: list) -> tuple[float, dict]:
                   for i, s in enumerate(STAGES)}
 
 
+# kernels of the int8 tower's stem by name in a profile (lower case): the
+# cuDNN convolution, cuDNN's layout transforms, the epilogue (K3)
+STEM_KERNELS = {"conv": ("fprop", "convolve", "implicit", "conv2d"),
+                "transposes": ("nchwtonhwc", "nhwctonchw", "transpose", "padding"),
+                "k3": ("stem_epilogue_pool",)}
+
+
+def stem_split(events) -> dict:
+    """Device ms of the profiled step's stem kernels, by STEM_KERNELS."""
+    split = {k: 0.0 for k in STEM_KERNELS}
+    for e in events:
+        name = e.key.lower()
+        kind = ("k3" if "stem_epilogue_pool" in name else
+                next((k for k in ("transposes", "conv") if any(w in name for w in STEM_KERNELS[k])),
+                     None))
+        if kind and "int8_basic_block" not in name:
+            split[kind] += e.self_device_time_total / 1e3
+    return split
+
+
 def profile_step(fn, *args) -> dict:
     """One step fn(*args) under torch.profiler -> device busy time, idle
-    share and the kernels with the most device time."""
+    share, the kernels with the most device time and the stem's split."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -523,6 +596,7 @@ def profile_step(fn, *args) -> dict:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "stem_split_ms": stem_split(events),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in events[:10]]}
@@ -546,9 +620,9 @@ def check_probs(probs: torch.Tensor, label: str) -> None:
         raise RuntimeError(f"{label}: bad probabilities {tuple(probs.shape)}")
 
 
-def time_step(fn, model, wave, video, label: str, tail: str) -> None:
+def time_step(fn, model, wave, video, label: str, tail: str) -> dict:
     """Best of 3 timed steps with the stage split, then one profiled step:
-    one line of times and one {"profile": ...} line."""
+    one line of times and one {"profile": ...} line -> the profile."""
     torch.cuda.reset_peak_memory_stats()
     marks = []
     hooks = stage_hooks(model, marks)
@@ -562,8 +636,9 @@ def time_step(fn, model, wave, video, label: str, tail: str) -> None:
           f"{[round(1e3 * s, 2) for s, _ in reps]}), {B * T / FRAME_RATE / step:.1f}x "
           f"real time, {tail}, peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"profile": label, "stage_ms": stage_ms,
-                      **profile_step(fn, wave, video)}))
+    prof = profile_step(fn, wave, video)
+    print(json.dumps({"profile": label, "stage_ms": stage_ms, **prof}))
+    return prof
 
 
 def serving_launches(sq: str) -> dict:
@@ -636,13 +711,14 @@ def int8_path(rows):
         probs = fn(wave, video)
         torch.cuda.synchronize()
         counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
-        expect = {**dict.fromkeys(lstm_fused.launches, 0), **serving_launches(sq),
-                  conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1}
+        # the stem conv writes channels-last: the channels-last K3, once
+        expect = {**dict.fromkeys(counts, 0), **serving_launches(sq),
+                  conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1}
         if counts != expect:
             raise RuntimeError(f"int8 tower {sq}: launch counts {counts}, "
                                f"expected {expect}")
         rows["k2"]["launches"] = counts[conv_fused.KERNEL_NAME]
-        rows["k3"]["launches"] = counts[stem_fused.KERNEL_NAME]
+        rows["k3_nhwc"]["launches"] = counts[stem_fused.NHWC_KERNEL_NAME]
         check_probs(probs, f"int8 tower {sq}")
         block_kernel = conv_fused.basic_block_int8
         resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
@@ -655,9 +731,13 @@ def int8_path(rows):
         err = (probs - ref).abs().max().item()
         if err > INT8_PROB_TOL:
             raise RuntimeError(f"int8 tower {sq}: step vs plain K2/K3 {err}")
-        time_step(fn, model, wave, video, f"int8_tower/{sq}",
-                  f"launches {counts}, max|probs-plain K2/K3| {err:.2e} "
-                  f"(tol {INT8_PROB_TOL:g})")
+        prof = time_step(fn, model, wave, video, f"int8_tower/{sq}",
+                         f"launches {counts}, max|probs-plain K2/K3| {err:.2e} "
+                         f"(tol {INT8_PROB_TOL:g})")
+        split = prof["stem_split_ms"]
+        print(f"int8_tower/{sq} stem in the profiled step: conv {split['conv']:.3f} ms, "
+              f"transposes {split['transposes']:.3f} ms, K3 {split['k3']:.3f} ms")
+    stem_routes(trunk, video)
     # int8 tower features against the fp32 float tower, same weights and frames
     float_trunk = ResNet18().cuda().eval()
     float_trunk.load_state_dict({k: v for k, v in trunk.state_dict().items()
@@ -672,6 +752,49 @@ def int8_path(rows):
     if not (rel < FEAT_REL and corr > FEAT_CORR):
         raise RuntimeError(f"int8 tower features: rel {rel}, corr {corr}")
     return model
+
+
+def stem_routes(trunk, video) -> None:
+    """The stem of the int8 tower on the serving step's frames (64 x 246),
+    each route timed alone by CUDA events, in turns: the conv writing
+    channels-last and the channels-last K3 (the served route), against the
+    NCHW conv and the NCHW K3; and one profiled pass of each conv for its
+    layout transforms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from avvad_tpu_torch.ops import stem_fused
+
+    frames = video.reshape(-1, 1, 67, 67)
+    a, b, _ = trunk.folded()
+    with torch.inference_mode():
+        conv = {"cl": lambda: trunk.conv1(frames, channels_last=True),
+                "nchw": lambda: trunk.conv1(frames)}
+        stems = {k: f() for k, f in conv.items()}
+        if not stems["cl"].is_contiguous(memory_format=torch.channels_last) or \
+                not stems["nchw"].is_contiguous():
+            raise RuntimeError("stem conv: unexpected output layouts")
+        ms = {k: [] for k in ("conv_cl", "k3_cl", "conv_nchw", "k3_nchw")}
+        for order in (("cl", "nchw"), ("nchw", "cl")):
+            for route in order:
+                ms["conv_" + route].append(cuda_ms(conv[route], 3))
+                ms["k3_" + route].append(cuda_ms(
+                    lambda: stem_fused.stem_epilogue_pool_quant(stems[route], a, b), 5))
+        transforms, kernels = {}, {}
+        for route, f in conv.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                f()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+                      and e.self_device_time_total > 0]
+            transforms[route] = stem_split(events)
+            kernels[route] = [[e.key[:90], e.self_device_time_total / 1e3] for e in events]
+    best = {k: min(v) for k, v in ms.items()}
+    print(f"int8 stem on {frames.shape[0]} frames, alone: channels-last route conv "
+          f"{best['conv_cl']:.3f} ms + K3 {best['k3_cl']:.3f} ms; NCHW route conv "
+          f"{best['conv_nchw']:.3f} ms + K3 {best['k3_nchw']:.3f} ms (reps "
+          f"{ {k: [round(t, 3) for t in v] for k, v in ms.items()} })")
+    print(json.dumps({"stem_routes_ms": best, "profiled_conv_split_ms": transforms,
+                      "profiled_conv_kernels": kernels}))
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1052,57 +1175,106 @@ def probe_bound(b: int, t: int, h: int, mode: str) -> tuple[float, str]:
 
 
 def probe_kernel_phase(lstm_fused, tool) -> dict:
-    """P1's four modes against the plain version at the probe's shape and
-    the ragged one, with times and bounds -> kernel rows "probe/<mode>"."""
+    """P1's four modes against the plain version: on the persistent frame
+    (``lstm_probe_persist``) at the probe's shape and the ragged one, "full"
+    and "h_bf16" also bit for bit against the serving kernels; per step
+    (``lstm_probe``) outside the plan and, the route forced, at the probe's
+    shape; both routes timed in turns there, with bounds -> kernel rows
+    "probe_persist/<mode>" and "probe/<mode>" (per step)."""
     dev = torch.device("cuda")
     lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
     x_in = torch.randn(B, T, H, generator=torch.Generator().manual_seed(9)).cuda()
     with torch.inference_mode():
         cudnn_ms = cuda_ms(lambda: lstm(x_in), 5)
     rows = {}
+
+    def check(mode, b, t, h, route):
+        xp, w, _, _ = tool.probe_inputs(b, t, h, dev, seed=3)
+        g = torch.Generator().manual_seed(4)
+        h0 = torch.tanh(torch.randn(b, h, generator=g)).cuda()
+        c0 = torch.randn(b, h, generator=g).cuda()
+        lstm_fused.reset_launches()
+        y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        if counts != {route: 1 if route == "probe_persist" else t}:
+            raise RuntimeError(f"probe {mode} B={b} T={t} H={h}: launches {counts}, "
+                               f"expected {route} alone")
+        ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
+        err = (y - ref).abs().max().item()
+        print(f"{lstm_fused.KERNEL_NAMES[route]}[{mode}] B={b} T={t} H={h}: max|kernel-plain| = "
+              f"{err:.3e} (tol {PROBE_TOL[mode]:g}; max|plain| {ref.abs().max().item():.3f})")
+        if not (torch.isfinite(y).all() and err <= PROBE_TOL[mode]):
+            raise RuntimeError(f"probe {mode}: kernel disagrees with plain ({err})")
+        if route == "probe_persist" and mode in PROBE_SQ and mode != "matmul_only":
+            serving = lstm_fused.lstm_layer_fused(xp, w, h0, c0, PROBE_SQ[mode])
+            if not torch.equal(y, serving):
+                raise RuntimeError(f"probe {mode} B={b} T={t} H={h}: differs from "
+                                   f"{PROBE_SQ[mode]}_persist by "
+                                   f"{(y - serving).abs().max().item()}")
+            print(f"lstm_probe_persist[{mode}] B={b} T={t} H={h}: bit for bit equal to "
+                  f"{lstm_fused.KERNEL_NAMES[PROBE_SQ[mode] + '_persist']}")
+        return err
+
     for mode in lstm_fused.PROBE_MODES:
-        errs = []
-        for b, t, h in ((B, T, H), RAGGED):
-            xp, w, _, _ = tool.probe_inputs(b, t, h, dev, seed=3)
-            g = torch.Generator().manual_seed(4)
-            h0 = torch.tanh(torch.randn(b, h, generator=g)).cuda()
-            c0 = torch.randn(b, h, generator=g).cuda()
-            y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
-            torch.cuda.synchronize()
-            ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
-            err = (y - ref).abs().max().item()
-            print(f"lstm_probe[{mode}] B={b} T={t} H={h}: max|kernel-plain| = {err:.3e} "
-                  f"(tol {PROBE_TOL[mode]:g}; max|plain| {ref.abs().max().item():.3f})")
-            if not (torch.isfinite(y).all() and err <= PROBE_TOL[mode]):
-                raise RuntimeError(f"probe {mode}: kernel disagrees with plain ({err})")
-            errs.append(err)
+        errs = {"probe_persist": [check(mode, *shape, "probe_persist")
+                                  for shape in ((B, T, H), RAGGED)],
+                "probe": [check(mode, *OUT_OF_PLAN, "probe")]}
         xp, w, h0, c0 = tool.probe_inputs(B, T, H, dev)
-        ms = cuda_ms(lambda: lstm_fused.lstm_probe(xp, w, h0, c0, mode), 5)
+        kernel = lambda: lstm_fused.lstm_probe(xp, w, h0, c0, mode)  # noqa: E731
+        with per_step_route(lstm_fused):  # the per-step route at the probe's shape too
+            y_step = kernel()
+            errs["probe"].append((y_step - lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode))
+                                 .abs().max().item())
+            if errs["probe"][-1] > PROBE_TOL[mode]:
+                raise RuntimeError(f"per-step probe {mode}: {errs['probe'][-1]}")
+        # per step, persistent, persistent, per step: in turns on one card
+        lstm_fused.reset_launches()
+        with per_step_route(lstm_fused):
+            step_ms = [cuda_ms(kernel, 5)]
+        persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
+        with per_step_route(lstm_fused):
+            step_ms.append(cuda_ms(kernel, 5))
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        if counts != {"probe_persist": 12, "probe": 12 * T}:
+            raise RuntimeError(f"probe {mode}: timed the wrong route: {counts}")
         plain_ms = cuda_ms(lambda: lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode), 2)
         library_ms = cudnn_ms if mode in ("full", "h_bf16") else None
         bound_ms, bound_by = probe_bound(B, T, H, mode)
-        print(f"lstm_probe[{mode}]: kernel {ms:.3f} ms/layer ({1e3 * ms / T:.2f} us/step), "
-              f"plain {plain_ms:.3f}, cuDNN LSTM layer "
-              f"{'none' if library_ms is None else f'{library_ms:.3f}'}, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
-        rows[f"probe/{mode}"] = {
-            "name": f"lstm_probe[{mode}]", "route": "cuda",
-            "source": "avvad_tpu_torch/csrc/lstm_recurrence.cu",
-            "replaces": "scripts/bench_lstm_probe.py:71", "launches": None,
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-    full, mm, go = (rows[f"probe/{m}"]["ms"] for m in ("full", "matmul_only", "gates_only"))
-    print(f"lstm_probe split of a full step ({1e3 * full / T:.2f} us): matmul_only "
-          f"{mm / full:.3f} of full, gates_only {go / full:.3f} of full")
-    # a quarter of the product would be dead-code elimination of three gates
-    if mm < 0.5 * full:
-        raise RuntimeError(f"matmul_only {mm:.3f} ms is under half of full {full:.3f} ms: "
-                           "the contraction was cut")
+        for route, reps in (("probe_persist", persist_ms), ("probe", step_ms)):
+            ms = min(reps)
+            print(f"{lstm_fused.KERNEL_NAMES[route]}[{mode}]: kernel {ms:.3f} ms/layer "
+                  f"({1e3 * ms / T:.2f} us/step; reps {[round(r, 3) for r in reps]}), plain "
+                  f"{plain_ms:.3f}, cuDNN LSTM layer "
+                  f"{'none' if library_ms is None else f'{library_ms:.3f}'}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+            rows[f"{route}/{mode}"] = {
+                "name": f"{lstm_fused.KERNEL_NAMES[route]}[{mode}]", "route": "cuda",
+                "source": ("avvad_tpu_torch/csrc/lstm_persistent.cu" if route == "probe_persist"
+                           else "avvad_tpu_torch/csrc/lstm_recurrence.cu"),
+                "replaces": "scripts/bench_lstm_probe.py:71", "launches": None,
+                "max_abs_err": max(errs[route]), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    for route in ("probe_persist", "probe"):
+        full, mm, go, hb = (rows[f"{route}/{m}"]["ms"] for m in
+                            ("full", "matmul_only", "gates_only", "h_bf16"))
+        us = 1e3 / T
+        print(f"{lstm_fused.KERNEL_NAMES[route]} split of a full step ({us * full:.2f} us): "
+              f"matmul_only {us * mm:.2f} us ({mm / full:.3f} of full), gates_only "
+              f"{us * go:.2f} us ({go / full:.3f}), h_bf16 {us * hb:.2f} us ({hb / full:.3f}); "
+              f"gate math (full - matmul_only) {us * (full - mm):.2f} us, exchange loads + "
+              f"product + reduction (full - gates_only) {us * (full - go):.2f} us")
+        # a quarter of the product would be dead-code elimination of three gates
+        if mm < 0.5 * full:
+            raise RuntimeError(f"{route} matmul_only {mm:.3f} ms is under half of full "
+                               f"{full:.3f} ms: the contraction was cut")
     return rows
 
 
 def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
-    """The probe entry point, as a user runs it, with launch counters."""
+    """The probe entry point, as a user runs it, with launch counters: at
+    its default shape (the persistent P1) and at a shape outside the plan
+    (the per-step P1), each with the counters at 0 before."""
     iters = 30
     lstm_fused.reset_launches()
     res = tool.main([])
@@ -1111,20 +1283,31 @@ def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
     # each timing is a warm-up and `iters` calls; "full" and "h_bf16" are
     # run once more each for their difference
     expect = {k: 0 for k in counts}
-    expect.update(probe=T * (4 * (iters + 1) + 2), none_persist=iters + 1,
+    expect.update(probe_persist=4 * (iters + 1) + 2, none_persist=iters + 1,
                   bf16_persist=iters + 1, int8_persist=iters + 1)
     if counts != expect:
         raise RuntimeError(f"probe tool: launch counts {counts}, expected {expect}")
     for mode, n in res["probe_launches"].items():
-        if n < T:
+        if n < 1:
             raise RuntimeError(f"probe tool: mode {mode} launched {n} times")
-        rows[f"probe/{mode}"]["launches"] = n
+        rows[f"probe_persist/{mode}"]["launches"] = n
     times = [*res["probe"].values(), *res["lstm_layer_fused"].values(),
              *res["frontend"].values()]
     if not all(np.isfinite(v) and v > 0 for v in times) or \
             not 0 <= res["h_bf16_vs_full"] < 1e-2:
         raise RuntimeError(f"probe tool: bad result {res}")
     print(json.dumps({"probe_tool": res, "launches": counts}))
+    # outside the plan (H % 4 != 0): the per-step probe, T launches a call
+    b, t, h = OUT_OF_PLAN_STEP["b"], OUT_OF_PLAN_STEP["t"], OUT_OF_PLAN_STEP["h"]
+    lstm_fused.reset_launches()
+    res = tool.main(["--b", str(b), "--t", str(t), "--h", str(h), "--iters", "2"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in lstm_fused.launches.items() if v}
+    if counts.get("probe") != t * (4 * 3 + 2) or any(k.endswith("_persist") for k in counts):
+        raise RuntimeError(f"probe tool outside the plan: launch counts {counts}")
+    for mode, n in res["probe_launches"].items():
+        rows[f"probe/{mode}"]["launches"] = n
+    print(json.dumps({"probe_tool_outside_plan": res, "launches": counts}))
 
 
 def frontend_phase() -> None:
@@ -1338,7 +1521,7 @@ def streaming_phase(float_model, int8_model) -> None:
                 got = ms.tick()
                 counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
                 expect = {k_: 0 for k_ in counts}
-                expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.KERNEL_NAME: 1})
+                expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1})
                 if counts != expect:
                     raise RuntimeError(f"{label}: tick launch counts {counts}, expected {expect}")
                 worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
@@ -1359,7 +1542,7 @@ def streaming_phase(float_model, int8_model) -> None:
                 resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
                 conv_fused.basic_block_int8 = block_kernel
             print(f"streaming {label}: launches a tick {conv_fused.KERNEL_NAME} 8, "
-                  f"{stem_fused.KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
+                  f"{stem_fused.NHWC_KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
                   f"{worst:.2e} (tol {INT8_PROB_TOL:g})")
             if worst > INT8_PROB_TOL:
                 raise RuntimeError(f"{label}: ticks against plain K2/K3 {worst}")
@@ -1405,8 +1588,8 @@ def main() -> None:
     streaming_phase(float_model, int8_model)
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
-        *lstm_fused.TRAIN_KERNELS, "k2", "k3",
-        *(f"probe/{m}" for m in lstm_fused.PROBE_MODES))]}))
+        *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",
+        *(f"{r}/{m}" for r in ("probe", "probe_persist") for m in lstm_fused.PROBE_MODES))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -286,25 +286,58 @@ def test_int8_trunk_kernels_match_plain(cuda):
     torch.testing.assert_close(feats, ref, rtol=0, atol=0)
 
 
+# the stem epilogue's route by the input's layout
+STEM_KERNEL = {"nchw": stem_fused.KERNEL_NAME, "channels_last": stem_fused.NHWC_KERNEL_NAME}
+
+
+@pytest.mark.parametrize("n", [37, 15744])
 @pytest.mark.parametrize("layout", ["nchw", "channels_last"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_stem_epilogue_matches_plain(cuda, dtype, layout):
+def test_stem_epilogue_matches_plain(cuda, dtype, layout, n):
+    """Each layout's kernel, at a ragged frame count and the serving step's
+    (64 x 246 frames), bit for bit: a of both signs (the channels-last
+    kernel pools before it quantises, on sign-flipped values)."""
     g = torch.Generator().manual_seed(3)
-    x = (torch.randn(37, 64, 34, 34, generator=g) * 3).to(cuda, dtype)
+    x = (torch.randn(n, 64, 34, 34, generator=g) * 3).to(cuda, dtype)
     if layout == "channels_last":
         x = x.contiguous(memory_format=torch.channels_last)
-    a = (torch.rand(64, generator=g) * 20 + 5).to(cuda)
-    b = (torch.randn(64, generator=g) * 10).to(cuda)
-    before = stem_fused.launches["stem_epilogue_pool"]
+    a = ((torch.rand(64, generator=g) * 20 + 5) * (torch.rand(64, generator=g) - 0.3).sign()).to(cuda)
+    b = (torch.randn(64, generator=g) * 10 + 20).to(cuda)
+    stem_fused.reset_launches()
     y = stem_fused.stem_epilogue_pool_quant(x, a, b)
     torch.cuda.synchronize()
-    assert stem_fused.launches["stem_epilogue_pool"] - before == 1
+    assert stem_fused.launches == {**dict.fromkeys(stem_fused.launches, 0), STEM_KERNEL[layout]: 1}
     ref = stem_fused.stem_epilogue_plain(x, a, b)
-    assert y.shape == (37, 17, 17, 64) and y.dtype == torch.int8
+    assert y.shape == (n, 17, 17, 64) and y.dtype == torch.int8
     torch.testing.assert_close(y, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "layout", "channels"])
+# (N, C, dtype): one frame; C = 16; channels over the 256 bytes of a unit
+# (fp32 C = 160: slices of 32 channels, a bulk copy a pixel; bf16 C = 144:
+# slices of 48)
+@pytest.mark.parametrize("n, c, dtype", [(1, 64, torch.bfloat16), (5, 16, torch.bfloat16),
+                                         (3, 16, torch.float32), (7, 160, torch.float32),
+                                         (4, 144, torch.bfloat16), (400, 64, torch.float32)])
+def test_stem_epilogue_nhwc_shapes(cuda, n, c, dtype):
+    """The channels-last kernel off the serving shape, with the largest and
+    smallest values of each channel at the frame's edges."""
+    g = torch.Generator().manual_seed(n + c)
+    x = torch.randn(n, 34, 34, c, generator=g) * 3
+    x[:, 0, ::5] = 11.0
+    x[:, 33, 1::7] = -11.0
+    x[:, ::3, 33] = 10.0
+    x[:, 2::9, 0] = -10.0
+    x = x.permute(0, 3, 1, 2).to(cuda, dtype)
+    a = ((torch.rand(c, generator=g) * 10 + 2) * (torch.rand(c, generator=g) - 0.4).sign()).to(cuda)
+    b = (torch.randn(c, generator=g) * 20 + 40).to(cuda)
+    stem_fused.reset_launches()
+    y = stem_fused.stem_epilogue_pool_quant(x, a, b)
+    torch.cuda.synchronize()
+    assert stem_fused.launches[stem_fused.NHWC_KERNEL_NAME] == 1
+    torch.testing.assert_close(y, stem_fused.stem_epilogue_plain(x, a, b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "channels", "alignment"])
 def test_int8_kernel_wrappers_raise(cuda, bad):
     spec = random_block(64, 64, 1, 0, cuda)
     x = torch.zeros(2, 17, 17, 64, dtype=torch.int8, device=cuda)
@@ -315,9 +348,13 @@ def test_int8_kernel_wrappers_raise(cuda, bad):
     elif bad == "layout":
         x = x.transpose(1, 2)
         stem = stem.transpose(2, 3)
-    else:
+    elif bad == "channels":
         spec, x = random_block(48, 48, 1, 0, cuda), x[..., :48].contiguous()
         stem, a, b = stem[:, :40].contiguous(), a[:40], b[:40]
+    else:  # channels-last input 4 bytes off a 16-byte boundary
+        flat = torch.zeros(2 * 34 * 34 * 64 + 1, device=cuda)
+        stem = flat[1:].view(2, 34, 34, 64).permute(0, 3, 1, 2)
+        x = x.transpose(1, 2)
     with pytest.raises(ValueError):
         _block(conv_fused.basic_block_int8, x, spec, 1)
     with pytest.raises(ValueError):
@@ -351,7 +388,9 @@ def test_int8_serving_fn_on_card_matches_cpu(cuda):
         probs[dev] = fn(wave, video).cpu()
         expect = 8 if dev == "cuda" else 0
         assert conv_fused.launches["int8_basic_block"] == expect
-        assert stem_fused.launches["stem_epilogue_pool"] == expect // 8
+        # the stem conv writes channels-last: the channels-last epilogue
+        assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0,
+                                       stem_fused.NHWC_KERNEL_NAME: expect // 8}
     torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-4, rtol=0)
 
 
@@ -533,11 +572,16 @@ def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
 PROBE_ATOL = {"full": 1e-4, "gates_only": 1e-4, "matmul_only": 1e-4, "h_bf16": 2e-3}
 
 
-@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024)])
+# inside the persistent plan: one tile a CTA (3, 7, 1024), (13, 7, 1000);
+# pairs of tiles (64, 16, 1024); outside it (3, 7, 1030) and (5, 4, 1022):
+# the per-step probe
+@pytest.mark.parametrize("b, t, h", [(3, 7, 1024), (5, 4, 96), (64, 16, 1024), (13, 7, 1000),
+                                     (3, 7, 1030), (5, 4, 1022)])
 @pytest.mark.parametrize("mode", lstm_fused.PROBE_MODES)
 def test_probe_kernel_matches_plain(cuda, mode, b, t, h):
     """The probe's own draws (x_proj x 0.1, W x 0.02: "matmul_only" is a
-    linear recurrence that a wider W lets diverge), non-zero h0 and c0."""
+    linear recurrence that a wider W lets diverge), non-zero h0 and c0; the
+    launch counters show the route of ``probe_variant``."""
     rng = np.random.default_rng(0)
     xp = torch.from_numpy(rng.normal(size=(b, t, 4 * h)).astype(np.float32) * 0.1).to(cuda)
     w = torch.from_numpy(rng.normal(size=(h, 4 * h)).astype(np.float32) * 0.02).to(cuda)
@@ -547,8 +591,12 @@ def test_probe_kernel_matches_plain(cuda, mode, b, t, h):
     lstm_fused.reset_launches()
     y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
     torch.cuda.synchronize()
-    assert lstm_fused.launches["probe"] == t
-    assert sum(lstm_fused.launches.values()) == t  # counted under the probe only
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    route = lstm_fused.probe_variant(mode, b, h, sms)
+    assert route == ("probe" if h in (1030, 1022) else "probe_persist")
+    # counted under the probe's route only
+    assert lstm_fused.launches == {**dict.fromkeys(lstm_fused.launches, 0),
+                                   route: t if route == "probe" else 1}
     assert torch.equal(c0, c0_before)  # the kernel advances a copy
     ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
     assert y.shape == (b, t, h) and torch.isfinite(y).all()
@@ -556,6 +604,25 @@ def test_probe_kernel_matches_plain(cuda, mode, b, t, h):
     if mode == "gates_only":  # W is never read
         y2 = lstm_fused.lstm_probe(xp, torch.full_like(w, float("nan")), h0, c0, mode)
         assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("b, t, h", [(64, 16, 1024), (3, 7, 1024), (13, 7, 1000)])
+def test_persistent_probe_equals_the_serving_kernels(cuda, b, t, h):
+    """P1 "full" and "h_bf16" on the persistent frame are the kernels that
+    serving runs at the shape, bit for bit."""
+    rng = np.random.default_rng(1)
+    xp = torch.from_numpy(rng.normal(size=(b, t, 4 * h)).astype(np.float32) * 0.1).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(h, 4 * h)).astype(np.float32) * 0.02).to(cuda)
+    h0 = torch.from_numpy(np.tanh(rng.normal(size=(b, h))).astype(np.float32)).to(cuda)
+    c0 = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda)
+    for mode, sq in (("full", "none"), ("h_bf16", "bf16")):
+        lstm_fused.reset_launches()
+        got = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
+        want = lstm_fused.lstm_layer_fused(xp, w, h0, c0, sq)
+        torch.cuda.synchronize()
+        assert lstm_fused.launches["probe_persist"] == 1
+        assert lstm_fused.launches[sq + "_persist"] == 1
+        assert torch.equal(got, want), mode
 
 
 def test_probe_kernel_raises_on_wrong_device_or_dtype(cuda):

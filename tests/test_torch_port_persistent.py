@@ -2,13 +2,17 @@
 
 ``csrc/lstm_persistent.cu`` runs only on a card. What the CPU can hold:
 the pure-Python plan that routes a shape to the persistent or the
-per-step kernels; the ctypes signatures against the C declarations; and
-the kernels' tiling (hidden units and batch tiles over CTAs, k over
-k-groups, partials summed in the kernels' order) as a plain
-emulation against the plain versions and against the JAX package's Pallas
-kernels in interpret mode.
+per-step kernels (the probe's too); the ctypes signatures against the C
+declarations; and the kernels' tiling (hidden units and batch tiles over
+CTAs, k over k-groups, partials summed in the kernels' order, and the
+probe's cuts of the inference kernel) as a plain emulation against the
+plain versions and against the JAX package's Pallas kernels in interpret
+mode.
 """
 
+import functools
+import importlib.util
+import pathlib
 import re
 
 import jax.numpy as jnp
@@ -258,10 +262,13 @@ def _contract_pairs(a, w):
     return sum(warps[1:], warps[0])
 
 
-def infer_tiled(xp, w, h0, c0, sm_count=H100_SMS):
+def infer_tiled(xp, w, h0, c0, sm_count=H100_SMS, cut="full"):
     """``lstm_f32h_persist``'s tiling in plain PyTorch: a CTA walks its batch
     tiles in pairs where it has two or more (a last one alone), else it is
-    the training forward without its residuals; a barrier a step."""
+    the training forward without its residuals; a barrier a step. ``cut``:
+    the probe's variant of it (``lstm_probe_persist``): "gates_only" without
+    the exchange's loads and the product, "matmul_only" without the gate
+    math (h = the i columns' sums, c unchanged)."""
     b, t, h4 = xp.shape
     h = h4 // 4
     plan = lstm_fused.persistent_plan(b, h, sm_count)
@@ -277,10 +284,18 @@ def infer_tiled(xp, w, h0, c0, sm_count=H100_SMS):
                       if plan["infer_pairs"] else [[tile] for tile in tiles])
             for group in groups:
                 rows = torch.cat([torch.arange(r.start, r.stop) for r in group])
-                rec = (_contract_pairs(h_in[rows], wd[:, cols]) if plan["infer_pairs"] else
-                       _contract(h_in[rows], wd[:, cols],
-                                 lstm_fused.PERSIST_K_GROUPS[FWD], chains=1))
-                i, f, g, o = (xp[rows, step][:, cols] + rec).split(len(j), dim=-1)
+                if cut == "gates_only":
+                    rec = 0.0
+                elif plan["infer_pairs"]:
+                    rec = _contract_pairs(h_in[rows], wd[:, cols])
+                else:
+                    rec = _contract(h_in[rows], wd[:, cols], lstm_fused.PERSIST_K_GROUPS[FWD],
+                                    chains=1)
+                pre = xp[rows, step][:, cols] + rec
+                if cut == "matmul_only":
+                    h_out[rows[:, None], j[None]] = pre[:, :len(j)]
+                    continue
+                i, f, g, o = pre.split(len(j), dim=-1)
                 i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
                 cn = f * c[rows][:, j] + i * g
                 c[rows[:, None], j[None]] = cn
@@ -454,3 +469,75 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0),
                        lstm_fused.lstm_layer_plain(xp, w, h0, c0))
     assert lstm_fused.launches == before  # CPU tensors launch nothing
+
+
+# --- the probe on the persistent frame ---
+
+
+@pytest.mark.parametrize("sm_count", [132, 46, 12])
+@pytest.mark.parametrize("h", [32, 100, 1024, 1030, 1096, 1100])
+@pytest.mark.parametrize("b", [1, 3, 19, 64, 400])
+def test_probe_route_follows_the_plan(b, h, sm_count):
+    """``lstm_probe`` takes ``lstm_probe_persist`` exactly where the inference
+    kernel whose arithmetic the mode takes apart is persistent: K1c's plan
+    for "h_bf16", K1a's for the other three."""
+    for mode in lstm_fused.PROBE_MODES:
+        sq = "bf16" if mode == "h_bf16" else "none"
+        persist = lstm_fused.infer_variant(sq, b, h, sm_count) == sq + "_persist"
+        assert lstm_fused.probe_variant(mode, b, h, sm_count) == (
+            "probe_persist" if persist else "probe")
+    assert lstm_fused.probe_variant("full", 64, 1024, H100_SMS) == "probe_persist"
+    assert lstm_fused.probe_variant("gates_only", 3, 1030, H100_SMS) == "probe"
+
+
+def test_probe_entries_are_named_and_counted():
+    assert lstm_fused.KERNEL_NAMES["probe_persist"] == "lstm_probe_persist"
+    assert {"probe", "probe_persist"} <= set(lstm_fused.launches)
+    src = (_build.CSRC / "lstm_persistent.cu").read_text()
+    # the probe's cuts are template arguments of the kernels serving runs
+    assert "f32h_persist<kFull>(xp, w, h0, c, y, nullptr, bar" in src
+    assert "lstm_infer_persist_kernel<CUT>" in src and "lstm_fwd_persist_kernel<false, CUT>" in src
+    entry = src[src.index('extern "C" int lstm_probe_persist('):]
+    for cut in ("kFull", "kGatesOnly", "kMatmulOnly"):
+        assert f"f32h_persist<{cut}>" in entry
+    assert "lstm_bf16h_persist(xp, w, h0, c, y, hx, bar" in entry
+
+
+@pytest.mark.parametrize("mode", ["gates_only", "matmul_only"])
+@pytest.mark.parametrize("b, t, h, sm_count", INFER_SHAPES)
+def test_tiled_probe_cuts_match_plain(b, t, h, sm_count, mode):
+    """The probe's draws (x_proj x 0.1, W x 0.02: "matmul_only" is a linear
+    recurrence that a wider W lets diverge) from a nonzero state."""
+    xp, w, h0, c0, _ = _inputs(b, t, h, seed=7)
+    xp, w = xp * 0.1, w * (0.02 / 0.3)
+    got = infer_tiled(xp, w, h0, c0, sm_count, cut=mode)
+    ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL_F32)
+
+
+@pytest.fixture(scope="module")
+def probe_script():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "bench_lstm_probe", root / "scripts" / "bench_lstm_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("mode", ["full", "gates_only", "matmul_only"])
+@pytest.mark.parametrize("b, t, h, sm_count", [(3, 7, 32, 132), (50, 3, 64, 12)])
+def test_tiled_probe_matches_the_tpu_probe(probe_script, monkeypatch, b, t, h, sm_count,
+                                           mode):
+    """The emulated persistent probe against the probe kernel of
+    scripts/bench_lstm_probe.py in Pallas interpret mode (time-major)."""
+    from jax.experimental import pallas as pl
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    xp, w, h0, c0, _ = _inputs(b, t, h, seed=8)
+    xp, w = xp * 0.1, w * (0.02 / 0.3)
+    want = probe_script._variant_kernel(mode)(jnp.asarray(_tm(xp)), jnp.asarray(w.numpy()),
+                                              jnp.asarray(h0.numpy()), jnp.asarray(c0.numpy()))
+    got = infer_tiled(xp, w, h0, c0, sm_count, cut=mode)
+    np.testing.assert_allclose(got.numpy(), _tm(want), atol=ATOL_F32)
