@@ -2,14 +2,18 @@
 
 NCHW for cuDNN; the converter transposes the JAX package's HWIO kernels to
 OIHW. Same topology and numerics as the JAX float trunk: gray stem (the
-(64, 3, 7, 7) kernel summed over its input channels), BatchNorm eps 1e-5
+(64, 3, 7, 7) kernel summed over its input channels; ``gray_input=False``
+takes 3-channel frames through the whole kernel), BatchNorm eps 1e-5
 computed in fp32, a -inf-padded 3x3/2 max pool, four stages of two
 BasicBlocks (64, 128, 256, 512) with 1x1/2 downsample shortcuts (flax
 ``SAME`` at 17 -> 9 -> 5 -> 3 pads nothing, as torch's padding 0), and a
 global mean pool. With ``dtype=bfloat16`` the convs run in bf16 and every
 BatchNorm output is fp32, as in the JAX module. In train mode every
 BatchNorm normalises with batch statistics and updates its running ones by
-flax's rule (``batch_norm``), with the params frozen or not. The convs are plain cuDNN
+flax's rule (``batch_norm``), with the params frozen or not; a forward that
+``torch.utils.checkpoint`` recomputes in the backward pass
+(``running_stats_frozen``) leaves them alone, as flax's ``nn.remat`` keeps
+the primal pass's update only. The convs are plain cuDNN
 convolutions: the JAX package leaves them to XLA, outside any Pallas kernel.
 
 ``quant_int8`` turns on the W8A8 trunk (resnet.py:204-225,364-461): the
@@ -29,6 +33,7 @@ changes (``ResNet18.folded``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -40,6 +45,22 @@ from ..ops.conv_fused import conv_exact, fold_block, quant_hwio, trunk_features_
 from ..ops.stem_fused import fold_stem, stem_epilogue_pool_quant
 
 QUANT_MODES = ("dynamic", "calibrate", "static")
+
+# set while torch.utils.checkpoint recomputes a forward (``remat``)
+_stats_frozen = False
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within: train-mode ``batch_norm`` normalises with batch statistics
+    but leaves the running ones alone. The recompute context of the trunk's
+    checkpoint, so that a remat step updates each statistic once."""
+    global _stats_frozen
+    saved, _stats_frozen = _stats_frozen, True
+    try:
+        yield
+    finally:
+        _stats_frozen = saved
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -57,15 +78,17 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                fast_variance: bool = True) -> torch.Tensor:
     """flax ``nn.BatchNorm(momentum=0.9)`` over every axis of ``x`` but the
-    channel axis 1, in fp32. Eval mode: ``bn`` with its running statistics.
-    Train mode: the batch mean and BIASED variance (``fast_variance``:
-    E[x^2] - E[x]^2 clamped at 0, flax's default; else the two-pass
-    E[(x - mean)^2]), normalised in flax's order (x - mean) * (rsqrt(var +
-    eps) * scale) + bias, and the running statistics updated as flax does,
-    ra = (1 - m) ra + m batch with torch's momentum m = 0.1 (flax's 0.9)
-    and the biased variance (torch's own update would take the unbiased
-    one). Gradients flow through the batch statistics."""
-    x = x.float()
+    channel axis 1, in fp32 (float64 stays float64). Eval mode: ``bn`` with
+    its running statistics. Train mode: the batch mean and BIASED variance
+    (``fast_variance``: E[x^2] - E[x]^2 clamped at 0, flax's default; else
+    the two-pass E[(x - mean)^2]), normalised in flax's order (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, and the running statistics updated as
+    flax does, ra = (1 - m) ra + m batch with torch's momentum m = 0.1
+    (flax's 0.9) and the biased variance (torch's own update would take the
+    unbiased one), unless a recompute has them frozen
+    (``running_stats_frozen``). Gradients flow through the batch
+    statistics."""
+    x = _at_least_fp32(x)
     if not bn.training:
         return bn(x)
     axes = [0, *range(2, x.ndim)]
@@ -75,12 +98,17 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
         var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
     else:
         var = torch.mean(torch.square(x - mean.view(shape)), axes)
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+    if not _stats_frozen:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _bn_int8(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
@@ -200,54 +228,60 @@ class BasicBlock(nn.Module):
 
 
 class _StemGray(nn.Module):
-    """7x7/2 stem for one-channel input: the torchvision-shaped
-    (64, 3, 7, 7) kernel summed over its input channels (exact for a
-    channel-replicated gray image)."""
+    """7x7/2 stem on the torchvision-shaped (64, 3, 7, 7) kernel. ``gray``:
+    one-channel input and the kernel summed over its input channels (exact
+    for a channel-replicated gray image); otherwise 3-channel input
+    through the whole kernel, flax's ``nn.Conv`` stem."""
 
-    def __init__(self, dtype: torch.dtype, generator: torch.Generator):
+    def __init__(self, dtype: torch.dtype, generator: torch.Generator,
+                 gray: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.gray = gray
         self.weight = nn.Parameter(torch.empty(64, 3, 7, 7))
         lecun_normal_(self.weight, generator)
 
     def forward(self, x: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
-        """x (N, 1, H, W) -> (N, 64, H', W'). ``channels_last``: the output
-        channels-last, the layout the fused int8 path's epilogue reads. On
-        the card the input and the kernel are restrided to channels-last
-        (one input channel: the same bytes, no copy), so that cuDNN writes
-        the output channels-last itself. On the CPU the NCHW convolution's
-        output is copied into that layout: oneDNN's channels-last float32
-        convolution sums in another order, and the requantisation after it
-        would turn those ulps into one-LSB flips against the JAX package."""
-        k1 = self.weight.sum(dim=1, keepdim=True)
+        """x (N, 1 or 3, H, W) -> (N, 64, H', W'). ``channels_last``: the
+        output channels-last, the layout the fused int8 path's epilogue
+        reads. On the card the input and the kernel are restrided to
+        channels-last (one input channel: the same bytes, no copy), so that
+        cuDNN writes the output channels-last itself. On the CPU the NCHW
+        convolution's output is copied into that layout: oneDNN's
+        channels-last float32 convolution sums in another order, and the
+        requantisation after it would turn those ulps into one-LSB flips
+        against the JAX package."""
+        k = self.weight.sum(dim=1, keepdim=True) if self.gray else self.weight
         if not channels_last:
-            return _conv(x, k1, 2, 3, self.dtype)
+            return _conv(x, k, 2, 3, self.dtype)
         if not x.is_cuda:
-            return _conv(x, k1, 2, 3, self.dtype).contiguous(memory_format=torch.channels_last)
-        return F.conv2d(_one_channel_last(x.to(self.dtype)),
-                        _one_channel_last(k1.to(self.dtype)), stride=2, padding=3)
+            return _conv(x, k, 2, 3, self.dtype).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(_channels_last(x.to(self.dtype)),
+                        _channels_last(k.to(self.dtype)), stride=2, padding=3)
 
 
-def _one_channel_last(t: torch.Tensor) -> torch.Tensor:
-    """(N, 1, H, W) -> the same bytes with channels-last strides."""
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> channels-last; for one channel the same bytes with
+    channels-last strides (no copy)."""
     t = t.contiguous()
     n, c, h, w = t.shape
     if c != 1:
-        raise ValueError(f"expected one channel, got {tuple(t.shape)}")
+        return t.contiguous(memory_format=torch.channels_last)
     return t.as_strided(t.shape, (h * w, 1, w, 1))
 
 
 class ResNet18(nn.Module):
-    """Gray input (N, 1, H, W) -> (N, 512) pooled features, float32.
-    ``quant_mode`` and ``stages_pallas`` are plain attributes: ``calibrate``
-    switches them for its run and restores them."""
+    """Gray input (N, 1, H, W), or (N, 3, H, W) with ``gray_input=False``,
+    -> (N, 512) pooled features, float32. ``quant_mode`` and
+    ``stages_pallas`` are plain attributes: ``calibrate`` switches them for
+    its run and restores them."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  dtype: torch.dtype = torch.float32, norm_eps: float = 1e-5,
                  generator: Optional[torch.Generator] = None,
                  quant_int8: bool = False, quant_mode: str = "dynamic",
-                 stages_pallas: bool = False):
+                 stages_pallas: bool = False, gray_input: bool = True):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -256,7 +290,7 @@ class ResNet18(nn.Module):
         self.quant_int8 = quant_int8
         self.quant_mode = quant_mode
         self.stages_pallas = stages_pallas
-        self.conv1 = _StemGray(dtype, generator)
+        self.conv1 = _StemGray(dtype, generator, gray=gray_input)
         self.bn1 = nn.BatchNorm2d(64, eps=norm_eps)
         if quant_int8:
             self.register_buffer("q_stem", torch.zeros(()))
@@ -307,7 +341,7 @@ class ResNet18(nn.Module):
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for block in self.blocks():
                 x = block(x)
-            return x.mean(dim=(2, 3)).float()
+            return _at_least_fp32(x.mean(dim=(2, 3)))
         if self.stages_pallas:
             return self._fused_int8(self.conv1(x, channels_last=True))
         mode = self.quant_mode

@@ -1,8 +1,8 @@
 """The VAD models (port of avvad_tpu/models/vad_nets.py: AudioVAD,
 _VideoTower, VideoVAD and AVVAD), with the float tower or, for inference,
 the W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and
-static scales). ``AudioVAD`` and ``AVVAD`` have a ``streaming_head`` that
-advances one block with carried LSTM state (``serve.py``).
+static scales). Each model has a ``streaming_head`` that advances one block
+with carried LSTM state (``serve.py``).
 
 Children carry the JAX parameter tree's names (``lstm_audio``,
 ``vad_audio``, ``tower.features``, ``mcb``, ``mcb_bn``, ``lstm_merged``,
@@ -18,14 +18,16 @@ Dropout is not ported: ``dropout_rate`` > 0 raises.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .lstm import LSTMStack, select_last
 from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
-from .resnet import ResNet18, batch_norm, lecun_normal_
+from .resnet import ResNet18, batch_norm, lecun_normal_, running_stats_frozen
 
 
 class _VideoTower(nn.Module):
@@ -34,21 +36,31 @@ class _VideoTower(nn.Module):
     memory; frames are independent through the trunk). An int8 tower
     chunks only with static scales: "calibrate" would record per-chunk
     maxima in turn (harmless) but "dynamic" scales would become per chunk
-    (vad_nets.py:155-162)."""
+    (vad_nets.py:155-162). ``remat``: in training, the trunk's activations
+    are recomputed in the backward pass (``torch.utils.checkpoint``) instead
+    of kept, flax's ``nn.remat``; the recompute leaves the BatchNorm running
+    statistics alone (``resnet.running_stats_frozen``). ``gray_stem=False``:
+    the frames repeated to 3 channels through the whole stem kernel
+    (vad_nets.py:131-148)."""
 
     def __init__(self, dtype: torch.dtype = torch.float32, chunk: int = 0,
                  generator: Optional[torch.Generator] = None,
                  quant_int8: bool = False, quant_mode: str = "dynamic",
-                 stages_pallas: bool = False):
+                 stages_pallas: bool = False, remat: bool = False,
+                 gray_stem: bool = True):
         super().__init__()
         self.chunk = chunk
+        self.remat = remat
+        self.gray_stem = gray_stem
         self.features = ResNet18(dtype=dtype, generator=generator,
                                  quant_int8=quant_int8, quant_mode=quant_mode,
-                                 stages_pallas=stages_pallas)
+                                 stages_pallas=stages_pallas, gray_input=gray_stem)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         b, t, h, w = video.shape
         frames = video.reshape(b * t, 1, h, w)
+        if not self.gray_stem:
+            frames = frames.expand(-1, 3, -1, -1)
         n = b * t
         trunk = self.features
         # training takes the BatchNorm statistics over the whole frame batch
@@ -57,15 +69,24 @@ class _VideoTower(nn.Module):
         if chunkable and self.chunk and n > self.chunk:
             feats = torch.cat([self.features(frames[i:i + self.chunk])
                                for i in range(0, n, self.chunk)])
+        elif self.remat and self.training and torch.is_grad_enabled():
+            feats = checkpoint(trunk, frames, use_reentrant=False,
+                               context_fn=_recompute_frozen)
         else:
             feats = self.features(frames)
         return feats.reshape(b, t, -1)
 
 
-def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas):
+def _recompute_frozen():
+    """checkpoint's (forward, recompute) contexts."""
+    return contextlib.nullcontext(), running_stats_frozen()
+
+
+def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas,
+           remat, gray_stem):
     return _VideoTower(dtype=dtype, chunk=chunk, generator=g,
                        quant_int8=tower_int8, quant_mode=tower_quant_mode,
-                       stages_pallas=tower_pallas)
+                       stages_pallas=tower_pallas, remat=remat, gray_stem=gray_stem)
 
 
 def _no_dropout(dropout_rate: float) -> None:
@@ -114,20 +135,23 @@ class AudioVAD(nn.Module):
 
 class VideoVAD(nn.Module):
     """Video tower -> LSTM stack -> Dense logits (vad_nets.py:191-239),
-    with the ``return_last`` last-valid-step mode."""
+    with the ``return_last`` last-valid-step mode. ``remat`` and
+    ``gray_stem``: see ``_VideoTower``."""
 
     def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
                  lstm_layers: int = 2, dtype: torch.dtype = torch.float32,
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
                  tower_pallas: bool = False, tower_chunk: int = 0,
-                 num_video_features: int = 512, dropout_rate: float = 0.0,
+                 num_video_features: int = 512, remat: bool = False,
+                 gray_stem: bool = True, dropout_rate: float = 0.0,
                  seed: int = 0):
         super().__init__()
         _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
+        self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.tower = _tower(dtype, tower_chunk, g, tower_int8,
-                            tower_quant_mode, tower_pallas)
+                            tower_quant_mode, tower_pallas, remat, gray_stem)
         self.lstm_video = LSTMStack(num_video_features, lstm_hidden_size,
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
@@ -150,10 +174,27 @@ class VideoVAD(nn.Module):
             x = select_last(x, lengths.to(x.device))
         return self.vad_video(x.float())
 
+    def streaming_head(self, video: torch.Tensor, carries: list,
+                       video_frame_indices: Optional[torch.Tensor] = None):
+        """One streaming block: raw lip frames (N, Tc, 67, 67) and per-layer
+        (h, c) carries -> (logits (N, Tc, y_dim), new carries). The tower is
+        frame-local, so the carries are the only state. With
+        ``video_frame_indices`` ((N, Tc) int, per stream) the video holds
+        unique camera-rate frames (N, S, 67, 67), and the tower runs on
+        those and its features are gathered per stream, as in
+        ``AVVAD.streaming_head``. Call in eval mode."""
+        x = self.tower(video)
+        if video_frame_indices is not None:
+            idx = video_frame_indices.to(x.device).long()
+            x = torch.take_along_dim(x, idx[:, :, None], dim=1)
+        out, new_carries = self.lstm_video(x, carries=carries, return_carries=True)
+        return self.vad_video(out.float()), new_carries
+
 
 class AVVAD(nn.Module):
     """Video tower + audio features, fused by MCB (-> signed sqrt -> L2 ->
-    BatchNorm) or concatenation, -> LSTM stack -> Dense logits."""
+    BatchNorm) or concatenation, -> LSTM stack -> Dense logits. ``remat``
+    and ``gray_stem``: see ``_VideoTower``."""
 
     def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
                  lstm_layers: int = 2, use_mcb: bool = True,
@@ -163,7 +204,8 @@ class AVVAD(nn.Module):
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  tower_chunk: int = 0, mcb_folded_vars: bool = False,
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
-                 tower_pallas: bool = False, dropout_rate: float = 0.0,
+                 tower_pallas: bool = False, remat: bool = False,
+                 gray_stem: bool = True, dropout_rate: float = 0.0,
                  seed: int = 0):
         super().__init__()
         _no_dropout(dropout_rate)
@@ -172,7 +214,7 @@ class AVVAD(nn.Module):
         self.use_mcb = use_mcb
         self.eps = eps
         self.tower = _tower(dtype, tower_chunk, g, tower_int8,
-                            tower_quant_mode, tower_pallas)
+                            tower_quant_mode, tower_pallas, remat, gray_stem)
         if use_mcb:
             self.mcb = CompactBilinearPooling(
                 num_audio_features, num_video_features, mcb_output_size,

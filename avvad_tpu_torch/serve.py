@@ -1,5 +1,6 @@
 """Streaming VAD serving (port of avvad_tpu/serve.py: ``StreamingVAD``,
-``MultiStreamVAD``, ``StreamingAVVAD``, ``MultiStreamAVVAD``).
+``MultiStreamVAD``, ``StreamingAVVAD``, ``MultiStreamAVVAD``,
+``StreamingVideoVAD``, ``MultiStreamVideoVAD``).
 
 A stateful streaming classifier accepts raw PCM (and lip frames) in chunks
 of any size and emits frame-level speech probabilities with bounded
@@ -19,10 +20,11 @@ to ``device`` (the card unless ``device="cpu"``) in eval mode, and runs
 its step under ``torch.inference_mode()``. With carries the LSTM
 recurrence is the plain loop of ``models.lstm.LSTMCellFused`` (JAX leaves
 its Pallas kernel for ``lax.scan`` there too); with ``tower_pallas`` the
-static-int8 tower of an ``AVVAD`` runs on its hand-written kernels.
+static-int8 tower of an ``AVVAD`` or a ``VideoVAD`` runs on its
+hand-written kernels.
 
-Not ported yet: the video-only streamers, the ``mesh=`` and
-``step_override=`` options, and the C++ stream hub (no ``native=``).
+Not ported yet: the ``mesh=`` and ``step_override=`` options, and the C++
+stream hub (no ``native=``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ._device import resolve_device
 from .config import STFTConfig
-from .models.vad_nets import AVVAD, AudioVAD
+from .models.vad_nets import AVVAD, AudioVAD, VideoVAD
 from .native import StreamHub
 from .ops.stft import _dft_hop_blocks, _on, _windowed_dft_bases, frame_signal
 from .processing.video import fps_block_schedule, fps_block_src_max
@@ -57,6 +59,16 @@ def _to_wire_video(frames, dtype) -> np.ndarray:
     if dtype == np.uint8 and frames.dtype != np.uint8:
         return np.clip(np.round(frames), 0, 255).astype(np.uint8)
     return np.ascontiguousarray(frames, dtype=dtype)
+
+
+def _normalize_video(video: torch.Tensor, mean, std, eps: float) -> torch.Tensor:
+    """Wire frames (uint8 or float32) -> float32, dataset-normalised where
+    the statistics are given (uint8: dequantised on the device, so the
+    transfer stays a quarter of float32's)."""
+    v = video.float()
+    if mean is not None:
+        v = (v - mean) / (std + eps)
+    return v
 
 
 def _upload(x, device: torch.device) -> torch.Tensor:
@@ -525,10 +537,8 @@ class StreamingAVVAD:
                                  _upload(np.float32(self._peak), self._dev),
                                  self._cos, self._sin, self.cfg.eps,
                                  self._a_mean, self._a_std)[None]
-        # uint8 wire: dequantise on the device (the transfer stays 1/4 size)
-        v = _upload(video, self._dev).float()[None]
-        if self._v_mean is not None:
-            v = (v - self._v_mean) / (self._v_std + self.cfg.eps)
+        v = _normalize_video(_upload(video, self._dev)[None], self._v_mean,
+                             self._v_std, self.cfg.eps)
         logits, self._carries = self.model.streaming_head(feats, v, self._carries)
         return torch.sigmoid(logits[0, :, 0]).cpu().numpy()
 
@@ -693,10 +703,7 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
         (N, src_max, 67, 67) camera-rate frames with their per-stream
         gather schedule vidx (N, bf) (None otherwise)."""
         feats = self._audio_feats(frames, peaks)
-        # uint8 wire: dequantise on the device (the transfer stays 1/4 size)
-        v = video.float()
-        if self._v_mean is not None:
-            v = (v - self._v_mean) / (self._v_std + self.cfg.eps)
+        v = _normalize_video(video, self._v_mean, self._v_std, self.cfg.eps)
         logits, new_carries = self.model.streaming_head(
             feats, v, carries, per_stream_norm=True, video_frame_indices=vidx)
         return (torch.sigmoid(logits[..., 0]),
@@ -768,4 +775,162 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
         probs, self._carries = self._step(
             _upload(blocks, dev), _upload(self._vout, dev), vidx,
             _upload(peaks, dev), _upload(active, dev), self._carries)
+        return self._finish_tick(probs, active, fetch)
+
+
+class StreamingVideoVAD:
+    """Stateful streaming video-only classifier around a ``VideoVAD``.
+
+    feed(video_frames) accepts label-rate (62.5 fps) lip frames (T, 67, 67);
+    a device step fires per ``block_frames``. The tower is frame-local, so
+    the LSTM carries are the only state. For 30 fps camera input, re-time
+    frames with ``processing.video.fps_resample_indices`` before feeding.
+    """
+
+    def __init__(self, model: VideoVAD, norm_stats: Optional[dict] = None,
+                 block_frames: int = 16, video_uint8: bool = False,
+                 device: str | torch.device | None = None):
+        self._dev, self.model = _place(model, device)
+        self.block_frames = block_frames
+        self.video_uint8 = video_uint8
+        self._vdtype = np.uint8 if video_uint8 else np.float32
+        self._v_mean = _norm_stat(norm_stats, "video_mean", self._dev)
+        self._v_std = _norm_stat(norm_stats, "video_std", self._dev)
+        self._eps = STFTConfig().eps
+        self.reset()
+
+    def reset(self) -> None:
+        self._vframes = np.zeros((0, 67, 67), dtype=self._vdtype)
+        self._carries = _zero_carries(self.model, 1, self._dev)
+
+    @torch.inference_mode()
+    def _step(self, video: np.ndarray) -> np.ndarray:
+        v = _normalize_video(_upload(video, self._dev)[None], self._v_mean,
+                             self._v_std, self._eps)
+        logits, self._carries = self.model.streaming_head(v, self._carries)
+        return torch.sigmoid(logits[0, :, 0]).cpu().numpy()
+
+    def feed(self, video_frames: np.ndarray) -> np.ndarray:
+        """Push lip frames; returns probabilities of completed blocks."""
+        if len(video_frames):
+            self._vframes = np.concatenate(
+                [self._vframes, _to_wire_video(video_frames, self._vdtype)])
+        outs, bf = [], self.block_frames
+        while len(self._vframes) >= bf:
+            vb, self._vframes = self._vframes[:bf], self._vframes[bf:]
+            outs.append(self._step(vb))
+        return np.concatenate(outs) if outs else np.zeros(0, dtype=np.float32)
+
+    def flush(self) -> np.ndarray:
+        """Classify the remaining frames (zero-padding the final block)."""
+        n = len(self._vframes)
+        if n == 0:
+            return np.zeros(0, dtype=np.float32)
+        vb = np.concatenate([self._vframes, np.zeros(
+            (self.block_frames - n, 67, 67), self._vdtype)])
+        self._vframes = self._vframes[:0]
+        return self._step(vb)[:n]
+
+
+class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
+    """N concurrent video-only streams through ONE device step (the video
+    twin of MultiStreamVAD). Masked carries keep each batched stream equal
+    to a solo ``StreamingVideoVAD`` run. ``video_fps`` (e.g. 30.0) takes
+    lip frames at the camera's rate (see ``_CameraRateVideoMixin``): the
+    tower, which is the whole cost of a video-only model but the LSTM, runs
+    on the unique frames only. video_uint8: lip frames travel as uint8 and
+    are dequantised on the device. With the static-int8 tower on its fused
+    kernels (``tower_int8``, ``tower_quant_mode="static"``,
+    ``tower_pallas``) a tick runs the channels-last K3 once and K2 eight
+    times on its unique frames. The JAX streamer's ``mesh=`` and
+    ``step_override=`` are not ported."""
+
+    def __init__(self, model: VideoVAD, n_streams: int,
+                 norm_stats: Optional[dict] = None, block_frames: int = 16,
+                 max_backlog_blocks: int = 32, video_uint8: bool = False,
+                 video_fps: Optional[float] = None,
+                 device: str | torch.device | None = None):
+        self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
+                           device)
+        self.video_uint8 = video_uint8
+        self._vdtype = np.uint8 if video_uint8 else np.float32
+        self._v_mean = _norm_stat(norm_stats, "video_mean", self._dev)
+        self._v_std = _norm_stat(norm_stats, "video_std", self._dev)
+        cfg = STFTConfig()
+        self._eps = cfg.eps
+        self._init_camera_video(video_fps, cfg.fs / cfg.hopsamp, n_streams,
+                                block_frames, self._vdtype)
+        self.reset()
+
+    def reset(self) -> None:
+        self._vbufs = [np.zeros((0, 67, 67), self._vdtype)
+                       for _ in range(self.n)]
+        self._camera_reset()
+        self._carries = _zero_carries(self.model, self.n, self._dev)
+        self._cancel_all_pending()
+
+    @torch.inference_mode()
+    def _step(self, video, vidx, active, carries):
+        """video (N, bf, 67, 67), or the block's unique (N, src_max, 67, 67)
+        camera-rate frames with their per-stream gather schedule vidx
+        (N, bf) (None otherwise)."""
+        v = _normalize_video(video, self._v_mean, self._v_std, self._eps)
+        logits, new_carries = self.model.streaming_head(
+            v, carries, video_frame_indices=vidx)
+        return (torch.sigmoid(logits[..., 0]),
+                self._mask_carries(active, new_carries, carries))
+
+    def warmup(self) -> None:
+        """Run the tick step once before serving traffic (see
+        MultiStreamVAD.warmup). State is untouched (active=0)."""
+        dev = self._dev
+        vidx = _upload(np.zeros_like(self._vidx), dev) if self.video_fps else None
+        self._step(_upload(np.zeros_like(self._vout), dev), vidx,
+                   torch.zeros(self.n, device=dev), self._carries)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def feed(self, stream_idx: int, pcm: Optional[np.ndarray] = None,
+             video_frames: Optional[np.ndarray] = None) -> None:
+        """Buffer lip frames for one stream (no compute). PCM is rejected: a
+        serving front drops a client that sends audio to a video-only
+        server. Raises ValueError when the stream's backlog would exceed
+        max_backlog_blocks (the bound is on the post-feed count)."""
+        if pcm is not None and len(pcm):
+            raise ValueError("video-only server: audio payload rejected")
+        if video_frames is None or not len(video_frames):
+            return
+        cap = self.max_backlog_blocks * self.block_frames
+        if len(self._vbufs[stream_idx]) + len(video_frames) > self._video_cap(cap):
+            raise ValueError(f"stream {stream_idx} video backlog exceeds "
+                             f"{self.max_backlog_blocks} blocks")
+        self._vbufs[stream_idx] = np.concatenate(
+            [self._vbufs[stream_idx], _to_wire_video(video_frames, self._vdtype)])
+
+    def has_full_block(self, stream_idx: int) -> bool:
+        """True when the stream could produce output on the next tick."""
+        return self._video_ready(stream_idx)
+
+    def reset_stream(self, stream_idx: int) -> None:
+        """Recycle one stream slot (buffer, resample phase, LSTM carries)."""
+        self._vbufs[stream_idx] = np.zeros((0, 67, 67), self._vdtype)
+        self._camera_reset_stream(stream_idx)
+        self._clear_carry_row(stream_idx)
+        self.cancel_pending(stream_idx)
+
+    def tick(self, fetch: Optional[bool] = True) -> dict:
+        """Advance every stream with a full video block; returns
+        {stream_idx: probs} for the streams that produced output.
+        ``fetch=False`` returns device tensors without synchronising."""
+        active = np.fromiter((1.0 if self._video_ready(i) else 0.0
+                              for i in range(self.n)), np.float32, self.n)
+        if not active.any():
+            return {}
+        for i in range(self.n):
+            if active[i]:
+                self._consume_video(i)
+        dev = self._dev
+        vidx = _upload(self._vidx, dev) if self.video_fps else None
+        probs, self._carries = self._step(_upload(self._vout, dev), vidx,
+                                          _upload(active, dev), self._carries)
         return self._finish_tick(probs, active, fetch)

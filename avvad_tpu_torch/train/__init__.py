@@ -1,7 +1,7 @@
-"""Training for the audio (``AudioVAD``) and audio-visual (``AVVAD``, the
-ResNet trunk frozen or not) models: state, steps, checkpoints and the epoch
-loop (port of avvad_tpu/train). Entry points run on ``cuda`` unless given
-``device="cpu"``."""
+"""Training for the audio (``AudioVAD``), video (``VideoVAD``) and
+audio-visual (``AVVAD``, the ResNet trunk frozen or not) models: state,
+steps, checkpoints and the epoch loop (port of avvad_tpu/train). Entry
+points run on ``cuda`` unless given ``device="cpu"``."""
 
 from .checkpoint import (best_checkpoint, latest_checkpoint, load_pretrained_trunk,
                          prune_checkpoints, resolve_checkpoint, restore_checkpoint,

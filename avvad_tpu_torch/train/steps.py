@@ -8,8 +8,9 @@ and Adam -> frame metrics. The train step runs the model in train mode,
 as JAX's ``train=True``: BatchNorm on batch statistics, running
 statistics updated; under autograd the LSTM runs its training kernels.
 Eval and predict run in eval mode without autograd: the inference
-kernel. The modalities ported are "audio" (``AudioVAD``) and "av"
-(``AVVAD``).
+kernel. The modalities are "audio" (``AudioVAD``), "video" (``VideoVAD``,
+its ResNet-18 trained with the rest) and "av" (``AVVAD``, the trunk frozen
+or not); the JAX package's "waveform" (``RawAudioVAD``) is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..models.losses import batch_mean_f1_metrics, masked_sequence_bce
 
-MODALITIES = ("audio", "av")
+MODALITIES = ("audio", "video", "av")
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -51,7 +52,7 @@ def _forward_inputs(modality: str, batch, norm_stats, eps: float, device) -> tup
         audio = normalize(audio, stats["audio_mean"], stats["audio_std"], eps)
     if video is not None and stats.get("video_mean") is not None:
         video = normalize(video, stats["video_mean"], stats["video_std"], eps)
-    return (audio,) if modality == "audio" else (audio, video)
+    return {"audio": (audio,), "video": (video,), "av": (audio, video)}[modality]
 
 
 def _metrics(logits, label, mask, loss, eps: float) -> dict:

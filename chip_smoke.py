@@ -104,7 +104,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
     each;
-14. one {"kernels": [...]} line (21 rows), then the card's name and power
+14. the video-only family and the trunk's backward: the full-width video
+    train step (VideoVAD, its ResNet-18 trained from scratch, 2 x LSTM 1024,
+    fp32, Adam 1e-4, B=16, T=512: 8,192 frames through the trunk) with the
+    checks and records of phase 8, its two compared steps on cuDNN's
+    deterministic algorithms; the same step with remat=True against the
+    step without (gradients, running statistics updated once; ms/step and
+    peak memory of both, one {"remat": ...} line); the AV train step with
+    the trunk unfrozen, as the video step; Trainer.fit on the video state,
+    as phase 9; MultiStreamVideoVAD (VideoVAD bf16, 30 fps uint8 camera
+    frames, 32 streams x 16 frames, 40 ticks) with the bf16 float tower and
+    with the calibrated static-int8 tower (the channels-last K3 once and K2
+    eight times a tick on its 288 unique frames), with the checks of phase
+    13, one {"streaming": ...} line each;
+15. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
@@ -202,6 +215,9 @@ TRAIN_REL_TOL = 1e-4
 STEP_GRAD_REL_TOL = 1e-3
 # the step's loss, kernel recurrence against plain
 STEP_LOSS_REL_TOL = 1e-5
+# the remat step against the same step without, on the same card with cuDNN
+# deterministic: the same operations, recomputed
+REMAT_TOL = 1e-5
 # spans of a train step between the CUDA events of train_marks and
 # timed_train_step, by the marks that bound them
 TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end"): "tower",
@@ -210,6 +226,8 @@ TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end")
                 ("lstm_start", "lstm_end"): "lstm_forward",
                 ("lstm_end", "backward_start"): "head_loss",
                 ("backward_start", "optimizer_start"): "backward",
+                ("backward_start", "tower_backward_start"): "backward_to_tower",
+                ("tower_backward_start", "optimizer_start"): "tower_backward",
                 ("optimizer_start", "optimizer_end"): "optimizer",
                 ("optimizer_end", "end"): "metrics"}
 # the probe kernel against its plain version (KERNEL_TOL's reasons: "full",
@@ -229,8 +247,10 @@ SOLO_TICKS = 8
 # one. bf16 AVVAD: cuDNN may pick its bf16 kernels by batch (288 unique
 # frames against 16 duplicated ones), which would move tower features by
 # bf16 roundings. H100 80GB HBM3 (700 W) readings: 1.8e-7 (audio), 5.5e-6
-# (float tower) and 2.9e-6 (int8 tower)
-SOLO_TOL = {"audio": 1e-5, "av": 5e-4}
+# (float tower) and 2.9e-6 (int8 tower). bf16 VideoVAD: the same bf16 kernel
+# choice, and no MCB normalisation damps it on the way to the LSTM: 2.4e-3
+# (float tower), 6.0e-8 (int8 tower); the fp32 VideoVAD 2.4e-7
+SOLO_TOL = {"audio": 1e-5, "av": 5e-4, "video": 1e-2, "video_fp32": 1e-5}
 # the pipelined run against the synchronous one: the same operations at the
 # same shapes on the same card
 PIPE_TOL = 1e-6
@@ -955,9 +975,11 @@ def train_kernel_phase(lstm_fused) -> dict:
     return rows
 
 
-def train_batch(t: int, b: int, av: bool, seed: int):
+def train_batch(t: int, b: int, modality: str, seed: int):
     """A seeded batch on the card (as a prefetcher leaves it): ragged
-    lengths in [t/2, t] (the first full), random labels on valid frames."""
+    lengths in [t/2, t] (the first full), random labels on valid frames;
+    log-power frames unless the modality is "video", lip frames unless it
+    is "audio"."""
     from avvad_tpu_torch.data import Batch
 
     rng = np.random.default_rng(seed)
@@ -966,23 +988,34 @@ def train_batch(t: int, b: int, av: bool, seed: int):
     mask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
     label = (rng.random((b, t, 1)) > 0.5).astype(np.float32) * mask[..., None]
     cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-    return Batch(audio=cuda(rng.standard_normal((b, t, 513), np.float32)),
-                 video=cuda(rng.standard_normal((b, t, 67, 67), np.float32)) if av else None,
+    audio = rng.standard_normal((b, t, 513), np.float32)
+    video = rng.standard_normal((b, t, 67, 67), np.float32) if modality != "audio" else None
+    return Batch(audio=cuda(audio) if modality != "video" else None,
+                 video=cuda(video) if video is not None else None,
                  label=cuda(label), lengths=lengths, mask=cuda(mask))
 
 
 def train_marks(model, optimizer, marks: list) -> list:
     """Hooks that record CUDA events inside a train step at the tower's and
     the LSTM stack's edges, when the logits' gradient is formed (the start
-    of the backward pass) and around the optimizer step -> handles."""
+    of the backward pass), when the tower's output gradient is (the start
+    of the trunk's backward, where the trunk trains) and around the
+    optimizer step -> handles."""
     def mark(name):
         return lambda *_: _mark(marks, name)
+
+    def on_tower(_module, _inputs, feats):
+        if feats.requires_grad:
+            feats.register_hook(mark("tower_backward_start"))
 
     handles = []
     if hasattr(model, "tower"):
         handles += [model.tower.register_forward_pre_hook(mark("tower_start")),
-                    model.tower.register_forward_hook(mark("tower_end"))]
-    lstm = model.lstm_merged if hasattr(model, "lstm_merged") else model.lstm_audio
+                    model.tower.register_forward_hook(mark("tower_end")),
+                    model.tower.register_forward_hook(on_tower)]
+    lstm = next(getattr(model, n) for n in ("lstm_merged", "lstm_video", "lstm_audio")
+                if hasattr(model, n))
+
     def on_logits(_module, _inputs, logits):
         logits.register_hook(mark("backward_start"))
 
@@ -1008,69 +1041,90 @@ def timed_train_step(step, state, batch, marks: list) -> tuple[float, dict]:
                 for (a, ea), (b, eb) in zip(marks, marks[1:])}
 
 
-def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int = T):
+def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int = T,
+               frozen: bool = True):
     """One train step (at full width by default) with launch counters and
     the plain recurrence's step as reference, then 3 timed steps and a
     profiled one -> the train state. At H=1024 the recurrence goes through
     the persistent K1d / K1e, one launch a layer; at an ``h`` outside
-    their plan through the per-step ones."""
-    from avvad_tpu_torch.models import AVVAD, AudioVAD
+    their plan through the per-step ones. "video" trains VideoVAD's
+    ResNet-18 from scratch, "av" with ``frozen=False`` AVVAD's; the two
+    compared steps then run cuDNN's deterministic algorithms, so that the
+    trunk's weight gradients sum in one order in both."""
+    from avvad_tpu_torch.models import AVVAD, AudioVAD, VideoVAD
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
     from avvad_tpu_torch.train import (create_train_state, make_predict_step,
                                        make_train_step)
 
     av = modality == "av"
-    model = (AVVAD(lstm_hidden_size=h, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
-                   use_kernel_lstm=True, seed=0) if av
-             else AudioVAD(lstm_hidden_size=h, lstm_layers=2, use_kernel_lstm=True, seed=0))
+    if av:
+        model = AVVAD(lstm_hidden_size=h, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                      use_kernel_lstm=True, seed=0)
+    elif modality == "video":
+        model = VideoVAD(lstm_hidden_size=h, lstm_layers=2, use_kernel_lstm=True, seed=0)
+    else:
+        model = AudioVAD(lstm_hidden_size=h, lstm_layers=2, use_kernel_lstm=True, seed=0)
+    freeze = av and frozen
+    trunk_trains = modality == "video" or (av and not frozen)
+    label = modality + ("/unfrozen" if av and not frozen else "")
     reference = copy.deepcopy(model)
-    state = create_train_state(model, learning_rate=1e-4, freeze_video_trunk=av)
+    state = create_train_state(model, learning_rate=1e-4, freeze_video_trunk=freeze)
     step = make_train_step(modality)
-    batch = train_batch(t, b, av, seed=8)
+    batch = train_batch(t, b, modality, seed=8)
     persist = lstm_fused.persistent_plan(
         b, h, torch.cuda.get_device_properties(0).multi_processor_count) is not None
     fwd, bwd = ("fwd_train_persist", "bwd_persist") if persist else ("fwd_train", "bwd")
-    print(f"train path {modality}: {type(model).__name__} fp32, LSTM 2x{h}"
-          f"{', MCB 1024, ResNet-18 frozen (train-mode BatchNorm)' if av else ''}, "
-          f"Adam 1e-4, B={b} T={t}, lengths {batch.lengths.tolist()}; the plan "
-          f"{'takes' if persist else 'refuses'} H={h}")
+    trunk = {"av": ", MCB 1024, ResNet-18 " + ("frozen (train-mode BatchNorm)" if frozen
+                                                 else "trained"),
+             "video": ", ResNet-18 trained from scratch", "audio": ""}[modality]
+    print(f"train path {label}: {type(model).__name__} fp32, LSTM 2x{h}{trunk}, "
+          f"Adam 1e-4, B={b} T={t} ({b * t} frames), lengths {batch.lengths.tolist()}; "
+          f"the plan {'takes' if persist else 'refuses'} H={h}")
+    torch.backends.cudnn.deterministic = trunk_trains
     for mod in (lstm_fused, conv_fused, stem_fused):
         mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
     counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
     expect = {k: 0 for k in counts}
     expect.update({fwd: 2, bwd: 2} if persist else {fwd: 2 * t, bwd: 2 * (t + 1)})
     if counts != expect:
-        raise RuntimeError(f"train {modality}: launch counts {counts}, expected {expect}")
+        raise RuntimeError(f"train {label}: launch counts {counts}, expected {expect}")
     if av or not persist:
         rows[fwd]["launches"] = counts[fwd]
         rows[bwd]["launches"] = counts[bwd]
     m = {k: v.item() for k, v in metrics.items()}
     if not (np.isfinite(m["loss"]) and all(0 <= m[k] <= 1 for k in m if k != "loss")):
-        raise RuntimeError(f"train {modality}: bad metrics {m}")
+        raise RuntimeError(f"train {label}: bad metrics {m}")
     grads = {n: p.grad.clone() for n, p in state.model.named_parameters() if p.grad is not None}
-    ref_state = create_train_state(reference, learning_rate=1e-4, freeze_video_trunk=av)
+    ref_state = create_train_state(reference, learning_rate=1e-4, freeze_video_trunk=freeze)
     with plain_recurrence(lstm_fused):
         _, ref_metrics = step(ref_state, batch)
+    torch.backends.cudnn.deterministic = False
     ref_grads = {n: p.grad for n, p in ref_state.model.named_parameters()
                  if p.grad is not None}
     if grads.keys() != ref_grads.keys():
-        raise RuntimeError(f"train {modality}: gradients of {sorted(grads)} "
+        raise RuntimeError(f"train {label}: gradients of {sorted(grads)} "
                            f"against {sorted(ref_grads)}")
+    n_trunk = sum(n.startswith("tower.features.") for n in grads)
+    if n_trunk != (60 if trunk_trains else 0):
+        raise RuntimeError(f"train {label}: {n_trunk} trunk gradients")
     grad_err = max(rel_err(grads[n], ref_grads[n]) for n in grads)
     loss_err = abs(m["loss"] - ref_metrics["loss"].item()) / abs(ref_metrics["loss"].item())
     del ref_state, reference, ref_grads
     torch.cuda.empty_cache()
-    print(f"train {modality}: launches {counts[fwd]} K1d ({lstm_fused.KERNEL_NAMES[fwd]}), "
+    print(f"train {label}: launches {counts[fwd]} K1d ({lstm_fused.KERNEL_NAMES[fwd]}), "
           f"{counts[bwd]} K1e ({lstm_fused.KERNEL_NAMES[bwd]}), "
           f"{counts['none'] + counts['none_persist']} K1a; "
           f"metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
           f"against the plain recurrence: grads rel {grad_err:.3e} (tol "
-          f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors, loss rel {loss_err:.3e} "
-          f"(tol {STEP_LOSS_REL_TOL:g})")
+          f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors ({n_trunk} of the trunk), "
+          f"loss rel {loss_err:.3e} (tol {STEP_LOSS_REL_TOL:g}); first step's peak mem "
+          f"{first_peak:.2f} GiB")
     if grad_err > STEP_GRAD_REL_TOL or loss_err > STEP_LOSS_REL_TOL:
-        raise RuntimeError(f"train {modality}: step vs plain recurrence {grad_err}, {loss_err}")
+        raise RuntimeError(f"train {label}: step vs plain recurrence {grad_err}, {loss_err}")
     torch.cuda.reset_peak_memory_stats()
     marks = []
     hooks = train_marks(state.model, state.optimizer, marks)
@@ -1080,10 +1134,10 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
         for hk in hooks:
             hk.remove()
     dt, stage_ms = min(reps, key=lambda r: r[0])
-    print(f"train {modality}: {1e3 * dt:.2f} ms/step (reps "
+    print(f"train {label}: {1e3 * dt:.2f} ms/step (reps "
           f"{[round(1e3 * r[0], 2) for r in reps]}), {b * t / FRAME_RATE / dt:.1f}x "
           f"real time, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"profile": f"train/{modality}" + ("" if persist else "/out_of_plan"),
+    print(json.dumps({"profile": f"train/{label}" + ("" if persist else "/out_of_plan"),
                       "stage_ms": stage_ms,
                       **profile_step(step, state, batch)}))
     if not persist:
@@ -1110,23 +1164,23 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     return state
 
 
-def trainer_phase(state) -> None:
+def trainer_phase(state, modality: str) -> None:
     """Trainer.fit for one epoch (2 train batches and 1 eval batch of B=4,
-    T=128) on the AV state, a checkpoint round trip, and one more step
-    from the saved and from the restored state."""
-    from avvad_tpu_torch.models import AVVAD
+    T=128) on the AV (trunk frozen) or the video state, a checkpoint round
+    trip, and one more step from the saved and from the restored state."""
+    from avvad_tpu_torch.models import AVVAD, VideoVAD
     from avvad_tpu_torch.ops import lstm_fused
     from avvad_tpu_torch.train import (Trainer, create_train_state, latest_checkpoint,
                                        make_train_step, restore_checkpoint)
 
     t = 128
-    train = [train_batch(t, 4, True, seed=s) for s in (10, 11)]
-    valid = [train_batch(t, 4, True, seed=12)]
+    train = [train_batch(t, 4, modality, seed=s) for s in (10, 11)]
+    valid = [train_batch(t, 4, modality, seed=12)]
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as model_dir:
         lstm_fused.reset_launches()
         t0 = time.perf_counter()
-        last = Trainer(state, "av", model_dir).fit(train, valid, end_epoch=2)
+        last = Trainer(state, modality, model_dir).fit(train, valid, end_epoch=2)
         torch.cuda.synchronize()
         counts = dict(lstm_fused.launches)
         expect = {k: 0 for k in counts}
@@ -1134,33 +1188,94 @@ def trainer_phase(state) -> None:
         # eval pass runs the persistent K1a, one launch a layer
         expect.update(fwd_train_persist=2 * 2, bwd_persist=2 * 2, none_persist=2)
         if counts != expect:
-            raise RuntimeError(f"Trainer.fit: launch counts {counts}, expected {expect}")
+            raise RuntimeError(f"Trainer.fit {modality}: launch counts {counts}, "
+                               f"expected {expect}")
         logs = {name: (Path(model_dir) / name).read_text().splitlines()
                 for name in ("output_batch.log", "output_epoch.log")}
         path = latest_checkpoint(model_dir)
         if len(logs["output_batch.log"]) != 2 or len(logs["output_epoch.log"]) != 4 \
                 or path is None:
-            raise RuntimeError(f"Trainer.fit: logs {logs}, checkpoint {path}")
-        fresh = create_train_state(
-            AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
-                  use_kernel_lstm=True, seed=1), freeze_video_trunk=True)
+            raise RuntimeError(f"Trainer.fit {modality}: logs {logs}, checkpoint {path}")
+        fresh = (AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                       use_kernel_lstm=True, seed=1) if modality == "av"
+                 else VideoVAD(lstm_hidden_size=H, lstm_layers=2, use_kernel_lstm=True, seed=1))
+        fresh = create_train_state(fresh, freeze_video_trunk=modality == "av")
         fresh, _, epoch = restore_checkpoint(model_dir, fresh)
-        print(f"Trainer.fit: 1 epoch in {time.perf_counter() - t0:.1f} s, launches "
+        print(f"Trainer.fit {modality}: 1 epoch in {time.perf_counter() - t0:.1f} s, launches "
               f"{counts}; valid {json.dumps({k: round(v, 4) for k, v in last['valid'].items()})}; "
               f"restored {Path(path).name} (epoch {epoch}, step {fresh.step})")
     want, got = state.model.state_dict(), fresh.model.state_dict()
     if want.keys() != got.keys() or any(not torch.equal(want[k], got[k]) for k in want) \
             or fresh.step != state.step:
-        raise RuntimeError("restored state differs from the saved one")
-    step = make_train_step("av")
+        raise RuntimeError(f"{modality}: restored state differs from the saved one")
+    step = make_train_step(modality)
+    # a trunk that trains sums its weight gradients in one order in both
+    torch.backends.cudnn.deterministic = modality == "video"
     for s in (state, fresh):
         step(s, train[0])
+    torch.backends.cudnn.deterministic = False
     err = max((a - b).abs().max().item() for a, b in
               zip(state.model.parameters(), fresh.model.parameters()))
-    print(f"one more step from the saved and the restored state: max |param diff| "
-          f"{err:.3e} (tol 1e-6)")
+    print(f"{modality}: one more step from the saved and the restored state: max |param "
+          f"diff| {err:.3e} (tol 1e-6)")
     if err > 1e-6:
-        raise RuntimeError(f"resumed step differs: {err}")
+        raise RuntimeError(f"{modality}: resumed step differs: {err}")
+
+
+def remat_phase() -> None:
+    """VideoVAD's full-width train step with ``remat=True`` (the trunk's
+    activations recomputed in the backward pass) against the same step
+    without, from the same init and batch, cuDNN deterministic: gradients
+    and the running statistics after the step (updated once, not again by
+    the recompute); then each timed (best of 3 after the compared step)
+    with its peak memory."""
+    from avvad_tpu_torch.models import VideoVAD
+    from avvad_tpu_torch.ops import lstm_fused
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    step = make_train_step("video")
+    batch = train_batch(T, TRAIN_B, "video", seed=8)
+    res = {}
+    for remat in (False, True):
+        model = VideoVAD(lstm_hidden_size=H, lstm_layers=2, use_kernel_lstm=True, remat=remat,
+                         seed=0)
+        state = create_train_state(model, learning_rate=1e-4)
+        torch.backends.cudnn.deterministic = True
+        lstm_fused.reset_launches()
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        if counts != {"fwd_train_persist": 2, "bwd_persist": 2}:
+            raise RuntimeError(f"remat={remat}: launch counts {counts}")
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        stats = {n: v.clone() for n, v in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        res[remat] = {"grads": grads, "stats": stats, "ms": 1e3 * min(reps),
+                      "reps_ms": [round(1e3 * r, 2) for r in reps],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, model
+        torch.cuda.empty_cache()
+    off, on = res[False], res[True]
+    grad_err = max(rel_err(on["grads"][n], g) for n, g in off["grads"].items())
+    stat_err = max((on["stats"][n] - v).abs().max().item() for n, v in off["stats"].items())
+    print(f"train video remat: {on['ms']:.2f} ms/step (reps {on['reps_ms']}), peak mem "
+          f"{on['peak_gib']:.2f} GiB; without remat {off['ms']:.2f} ms/step (reps "
+          f"{off['reps_ms']}), peak mem {off['peak_gib']:.2f} GiB; one step each from the same "
+          f"init: grads rel {grad_err:.3e}, running statistics max |diff| {stat_err:.3e} "
+          f"over {len(off['stats'])} (tol {REMAT_TOL:g})")
+    print(json.dumps({"remat": {k: {"ms_per_step": v["ms"], "peak_mem_gib": v["peak_gib"]}
+                                for k, v in (("on", on), ("off", off))},
+                      "grads_rel": grad_err, "running_stats_max_abs_diff": stat_err}))
+    if not (grad_err <= REMAT_TOL and stat_err <= REMAT_TOL):
+        raise RuntimeError(f"remat step against the step without: {grad_err}, {stat_err}")
 
 
 def probe_bound(b: int, t: int, h: int, mode: str) -> tuple[float, str]:
@@ -1355,7 +1470,11 @@ def stream_data(seed: int = 0):
 
 
 def feed_tick(ms, pcm, video, float_wire: bool) -> None:
+    """One tick's chunks of every stream; ``pcm`` None: video only."""
     for i in range(STREAMS):
+        if pcm is None:
+            ms.feed(i, video_frames=video[i])
+            continue
         chunk = pcm[i].astype(np.float32) / 32768.0 if float_wire else pcm[i]
         if video is None:
             ms.feed(i, chunk)
@@ -1385,7 +1504,8 @@ def run_streamer(ms, lstm, pcm, video, float_wire: bool, label: str):
         for k in range(TICKS):
             marks.clear()
             t0 = time.perf_counter()
-            feed_tick(ms, pcm[k], None if video is None else video[k], float_wire)
+            feed_tick(ms, None if pcm is None else pcm[k], None if video is None else video[k],
+                      float_wire)
             t1 = time.perf_counter()
             out = ms.tick()  # fetches: ends with the device's work done
             t2 = time.perf_counter()
@@ -1423,14 +1543,18 @@ def run_streamer(ms, lstm, pcm, video, float_wire: bool, label: str):
 
 def solo_check(solo, outs, pcm, up, kind: str, label: str) -> float:
     """Streams 0 and 1 of the batched run against a solo streamer fed the
-    same samples (and the same frames at 62.5 fps) -> largest difference."""
+    same samples (and the same frames at 62.5 fps; ``pcm`` None: the frames
+    alone) -> largest difference."""
     worst = 0.0
     for i in (0, 1):
         solo.reset()
         for k in range(SOLO_TICKS):
-            chunk = pcm[k][i].astype(np.float32)  # int-domain values and peak
-            got = (solo.feed(chunk) if up is None
-                   else solo.feed(chunk, up[i, k * BLOCK:(k + 1) * BLOCK]))
+            frames = None if up is None else up[i, k * BLOCK:(k + 1) * BLOCK]
+            if pcm is None:
+                got = solo.feed(frames)
+            else:
+                chunk = pcm[k][i].astype(np.float32)  # int-domain values and peak
+                got = solo.feed(chunk) if frames is None else solo.feed(chunk, frames)
             if got.shape != (BLOCK,):
                 raise RuntimeError(f"{label}: solo stream {i} tick {k} gave {got.shape}")
             worst = max(worst, float(np.abs(got - outs[k][i]).max()))
@@ -1447,7 +1571,8 @@ def pipeline_check(make, outs, pcm, video, label: str) -> float:
     ms = make()
     worst, n = 0.0, 6
     for k in range(n):
-        feed_tick(ms, pcm[k], None if video is None else video[k], False)
+        feed_tick(ms, None if pcm is None else pcm[k], None if video is None else video[k],
+                  False)
         got = ms.tick_pipelined()
         if k == 0:
             if got != {}:
@@ -1471,11 +1596,54 @@ def pipeline_check(make, outs, pcm, video, label: str) -> float:
     return worst
 
 
-def streaming_phase(float_model, int8_model) -> None:
+def int8_tick_checks(make, outs, pcm, video, label: str) -> dict:
+    """The static-int8 tower's ticks: 3 ticks of a fresh server, each with
+    the counters at 0 before and read after (the channels-last K3 once, K2
+    eight times, nothing else), equal to the run's first ticks; then the
+    same ticks with the plain K2 / K3 -> summary entries."""
     import avvad_tpu_torch.models.resnet as resnet_mod
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+
+    def ticks(ms, count: bool) -> float:
+        worst = 0.0
+        for k in range(3):
+            feed_tick(ms, None if pcm is None else pcm[k], video[k], False)
+            for mod in (lstm_fused, conv_fused, stem_fused):
+                mod.reset_launches()
+            got = ms.tick()
+            counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+            expect = {k_: 0 for k_ in counts}
+            expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1})
+            if count and counts != expect:
+                raise RuntimeError(f"{label}: tick launch counts {counts}, expected {expect}")
+            worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
+                                   for i in range(STREAMS)))
+        return worst
+
+    worst = ticks(make(), True)
+    if worst > PIPE_TOL:
+        raise RuntimeError(f"{label}: a second run differs by {worst}")
+    block_kernel = conv_fused.basic_block_int8
+    ref = make()
+    resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
+    conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
+    try:
+        worst = ticks(ref, False)
+    finally:
+        resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
+        conv_fused.basic_block_int8 = block_kernel
+    print(f"streaming {label}: launches a tick {conv_fused.KERNEL_NAME} 8, "
+          f"{stem_fused.NHWC_KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
+          f"{worst:.2e} (tol {INT8_PROB_TOL:g})")
+    if worst > INT8_PROB_TOL:
+        raise RuntimeError(f"{label}: ticks against plain K2/K3 {worst}")
+    return {"k2_launches_per_tick": 8, "k3_launches_per_tick": 1,
+            "plain_k2_k3_max_abs_diff": worst}
+
+
+def streaming_phase(float_model, int8_model) -> None:
     from avvad_tpu_torch import serve
     from avvad_tpu_torch.models import AudioVAD
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
 
     pcm, video, up = stream_data()
     span = dict(span_wire=True, hop_dft=True, audio_int16=True)
@@ -1510,45 +1678,61 @@ def streaming_phase(float_model, int8_model) -> None:
         summary["pipelined_max_abs_diff"] = pipeline_check(
             lambda: av_server(model), outs, pcm, video, label)
         if label == "av/int8_tower":
-            # one tick with the counters at 0 before and read after, then the
-            # same ticks with the plain K2 / K3
-            ms = av_server(model)
-            worst, block_kernel = 0.0, conv_fused.basic_block_int8
-            for k in range(3):
-                feed_tick(ms, pcm[k], video[k], False)
-                for mod in (lstm_fused, conv_fused, stem_fused):
-                    mod.reset_launches()
-                got = ms.tick()
-                counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
-                expect = {k_: 0 for k_ in counts}
-                expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1})
-                if counts != expect:
-                    raise RuntimeError(f"{label}: tick launch counts {counts}, expected {expect}")
-                worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
-                                       for i in range(STREAMS)))
-            if worst > PIPE_TOL:
-                raise RuntimeError(f"{label}: a second run differs by {worst}")
-            ref = av_server(model)
-            resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
-            conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
-            try:
-                worst = 0.0
-                for k in range(3):
-                    feed_tick(ref, pcm[k], video[k], False)
-                    got = ref.tick()
-                    worst = max(worst, max(float(np.abs(got[i] - outs[k][i]).max())
-                                           for i in range(STREAMS)))
-            finally:
-                resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
-                conv_fused.basic_block_int8 = block_kernel
-            print(f"streaming {label}: launches a tick {conv_fused.KERNEL_NAME} 8, "
-                  f"{stem_fused.NHWC_KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
-                  f"{worst:.2e} (tol {INT8_PROB_TOL:g})")
-            if worst > INT8_PROB_TOL:
-                raise RuntimeError(f"{label}: ticks against plain K2/K3 {worst}")
-            summary.update(k2_launches_per_tick=8, k3_launches_per_tick=1,
-                           plain_k2_k3_max_abs_diff=worst)
+            summary.update(int8_tick_checks(lambda: av_server(model), outs, pcm, video, label))
         print(json.dumps(summary))
+
+
+def video_streaming_phase() -> None:
+    """MultiStreamVideoVAD at full width (VideoVAD bf16, 2 x LSTM 1024), 30
+    fps uint8 camera frames, 32 streams x 16 frames a tick: the bf16 float
+    tower, then the static-int8 tower on its kernels (calibrated with the
+    port's ``calibrate`` on 2 streams' camera frames of the first 8 ticks),
+    each with the checks of streaming_phase; the int8 ticks with the launch
+    counters (the channels-last K3 once and K2 eight times a tick on its 288
+    unique frames) and against the plain K2 / K3; then the fp32 model's
+    batched ticks against its solo streamer."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import VideoVAD, calibrate
+
+    _, video, up = stream_data()
+    kw = dict(lstm_hidden_size=H, lstm_layers=2, dtype=torch.bfloat16, seed=0)
+    float_model = VideoVAD(**kw)
+    int8_model = VideoVAD(**kw, tower_int8=True, tower_quant_mode="static",
+                          tower_pallas=True).cuda()
+    frames = torch.from_numpy(np.concatenate(video[:8], axis=1)[:2]).float().cuda()
+    calibrate(int8_model, [frames])
+    print(f"video streaming: {STREAMS} streams x {BLOCK} frames a tick, {TICKS} ticks, 30 fps "
+          f"uint8 camera frames; the int8 tower calibrated on {frames.shape[0]} x "
+          f"{frames.shape[1]} frames, q_stem {int8_model.tower.features.q_stem.item():.4f}")
+
+    def server(model):
+        return serve.MultiStreamVideoVAD(model, STREAMS, block_frames=BLOCK, video_fps=30.0,
+                                         video_uint8=True)
+
+    for label, model in (("video/float_tower", float_model), ("video/int8_tower", int8_model)):
+        ms = server(model)
+        if ms._vout.shape[:2] != (STREAMS, 9):
+            raise RuntimeError(f"{label}: {ms._vout.shape[:2]} unique frames a tick")
+        outs, summary = run_streamer(ms, ms.model.lstm_video, None, video, False, label)
+        summary["solo_max_abs_diff"] = solo_check(
+            serve.StreamingVideoVAD(model, block_frames=BLOCK, video_uint8=True),
+            outs, None, up, "video", label)
+        summary["pipelined_max_abs_diff"] = pipeline_check(
+            lambda: server(model), outs, None, video, label)
+        if label == "video/int8_tower":
+            summary.update(int8_tick_checks(lambda: server(model), outs, None, video, label))
+        print(json.dumps(summary))
+        del ms
+        torch.cuda.empty_cache()
+    # the fp32 model, where no bf16 rounding hides a fault of the batched tick
+    fp32 = VideoVAD(lstm_hidden_size=H, lstm_layers=2, seed=0)
+    ms, outs = server(fp32), []
+    for k in range(SOLO_TICKS):
+        feed_tick(ms, None, video[k], False)
+        outs.append(ms.tick())
+        check_tick(outs[-1], f"video/float_tower_fp32 tick {k}")
+    solo_check(serve.StreamingVideoVAD(fp32, block_frames=BLOCK, video_uint8=True), outs,
+               None, up, "video_fp32", "video/float_tower_fp32")
 
 
 def main() -> None:
@@ -1579,13 +1763,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_path(rows, "audio", **OUT_OF_PLAN_STEP)
     torch.cuda.empty_cache()
-    trainer_phase(state)
+    trainer_phase(state, "av")
     del state
     torch.cuda.empty_cache()
     rows.update(probe_kernel_phase(lstm_fused, probe_tool))
     probe_tool_phase(lstm_fused, probe_tool, rows)
     frontend_phase()
     streaming_phase(float_model, int8_model)
+    del float_model, int8_model
+    torch.cuda.empty_cache()
+    # the video-only family and the trunk's backward
+    state = train_path(rows, "video")
+    torch.cuda.empty_cache()
+    remat_phase()
+    train_path(rows, "av", frozen=False)
+    torch.cuda.empty_cache()
+    trainer_phase(state, "video")
+    del state
+    torch.cuda.empty_cache()
+    video_streaming_phase()
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",

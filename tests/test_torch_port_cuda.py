@@ -566,6 +566,89 @@ def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
         assert _rel(g_k[n], g_p[n]) < 1e-4, n
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_video_train_step_kernels_match_plain(cuda, monkeypatch, remat):
+    """One VideoVAD train step (its ResNet-18 trained, 2 x LSTM 64, B=2,
+    T=16) with the training kernels against the same step with their plain
+    versions, cuDNN deterministic: loss, and every gradient, the trunk's 60
+    included, at the training path's 1e-3 (chip_smoke.py)."""
+    import copy
+
+    from avvad_tpu_torch.data import Batch
+    from avvad_tpu_torch.models import VideoVAD
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(1)
+    lengths = np.array([16, 11])
+    mask = (np.arange(16)[None] < lengths[:, None]).astype(np.float32)
+    batch = Batch(audio=None,
+                  video=rng.normal(size=(2, 16, 67, 67)).astype(np.float32),
+                  label=(rng.random((2, 16, 1)) > 0.5).astype(np.float32),
+                  lengths=lengths, mask=mask)
+    model = VideoVAD(lstm_hidden_size=64, lstm_layers=2, use_kernel_lstm=True, remat=remat)
+    results = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
+            monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
+        state = create_train_state(copy.deepcopy(model), device=cuda)
+        lstm_fused.reset_launches()
+        state, metrics = make_train_step("video")(state, batch)
+        torch.cuda.synchronize()
+        expect = (dict.fromkeys(lstm_fused.TRAIN_KERNELS, 0) if plain
+                  else _train_launches(2, 16, 64, calls=2))
+        assert _train_counts() == expect
+        results.append((metrics, {n: p.grad for n, p in state.model.named_parameters()}))
+    (m_k, g_k), (m_p, g_p) = results
+    assert g_k.keys() == g_p.keys()
+    assert sum(n.startswith("tower.features.") for n in g_k) == 60
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0)
+    for n in g_k:
+        assert _rel(g_k[n], g_p[n]) < 1e-3, n
+
+
+def test_int8_video_ticks_match_plain(cuda, monkeypatch):
+    """MultiStreamVideoVAD with the static-int8 tower on the card, 30 fps
+    uint8 camera frames, 2 streams: each tick launches the channels-last K3
+    once and K2 eight times, and the ticks equal (1e-4) the same ticks with
+    the plain K2 / K3 on the card."""
+    import avvad_tpu_torch.models.resnet as resnet_mod
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import VideoVAD, calibrate
+
+    rng = np.random.default_rng(2)
+    vid = [np.round(rng.random((24, 67, 67)) * 255).astype(np.float32) for _ in range(2)]
+    model = VideoVAD(lstm_hidden_size=64, lstm_layers=2, tower_int8=True,
+                     tower_quant_mode="static", tower_pallas=True)
+    calibrate(model, [torch.from_numpy(np.stack(vid))])
+
+    def ticks(count):
+        ms = serve.MultiStreamVideoVAD(model, 2, block_frames=16, video_fps=30.0,
+                                       video_uint8=True, device=cuda)
+        for i in range(2):
+            ms.feed(i, video_frames=vid[i])
+        out = []
+        for _ in range(2):
+            conv_fused.reset_launches()
+            stem_fused.reset_launches()
+            got = ms.tick()
+            assert set(got) == {0, 1}
+            if count:
+                assert conv_fused.launches["int8_basic_block"] == 8
+                assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0,
+                                               stem_fused.NHWC_KERNEL_NAME: 1}
+            out.append(np.stack([got[0], got[1]]))
+        return np.concatenate(out, axis=1)
+
+    kernels = ticks(True)
+    monkeypatch.setattr(resnet_mod, "stem_epilogue_pool_quant", stem_fused.stem_epilogue_plain)
+    monkeypatch.setattr(conv_fused, "basic_block_int8", conv_fused.basic_block_int8_plain)
+    plain = ticks(False)
+    assert kernels.shape == (2, 32)
+    np.testing.assert_allclose(kernels, plain, atol=1e-4)
+
+
 # the probe kernel against its plain version: "full" and "matmul_only" are
 # fp32 in another summation order, "gates_only" differs by expf/tanhf only,
 # "h_bf16" adds the rare h that crosses a bf16 rounding boundary

@@ -111,7 +111,7 @@ def test_train_entry_points_raise_without_a_card(monkeypatch):
     state, metrics = make_train_step("audio")(state, batch)
     assert state.step == 1 and metrics["loss"].device.type == "cpu"
     with pytest.raises(ValueError, match="not ported"):
-        make_train_step("video")
+        make_train_step("waveform")
 
 
 @pytest.mark.parametrize("state_quant", ["bf16", "int8"])
