@@ -1,8 +1,85 @@
-"""Frame-rate schedules (copies of avvad_tpu/processing/video.py:97-144)."""
+"""Lip-video decode and temporal upsampling (host numpy; a copy of
+avvad_tpu/processing/video.py).
+
+The NTCD-TIMIT ``matlab_raw/*.mat`` files hold per-frame 2-D DCT
+coefficients (frames, 4489). ``decode_dct_frames`` decodes them with the
+unnormalised type-2 IDCT as two matrix products, min-max normalises to
+[0, 255] (per frame by default, as the reference's shipped fixtures are)
+and rotates 90 degrees clockwise. ``fps_resample_indices`` is ffmpeg's
+``fps`` filter's duplication schedule, exactly, which re-times the 30 fps
+camera to the 62.5 fps STFT rate without ffmpeg; the block schedules serve
+the streaming servers. The .mat files are MATLAB v7.3, that is HDF5:
+``read_mat_dct`` imports ``h5py`` inside, so the module imports without it.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def make_idct_matrix(n: int, dtype=np.float64) -> np.ndarray:
+    """Matrix M with M @ x == scipy.fftpack.idct(x, type=2, norm=None).
+
+    idct2(x)[k] = x[0] + 2 * sum_{j>=1} x[j] cos(pi j (2k+1) / (2n)).
+    """
+    k = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    m = 2.0 * np.cos(np.pi * j * (2 * k + 1) / (2 * n))
+    m[:, 0] = 1.0
+    return m.astype(dtype)
+
+
+_IDCT_CACHE: dict[int, np.ndarray] = {}
+
+
+def idct2(x: np.ndarray) -> np.ndarray:
+    """Separable 2-D unnormalized type-2 IDCT of (..., n, n) frames.
+
+    Equivalent to the reference's idct(idct(X).T).T composition."""
+    n = x.shape[-1]
+    if n not in _IDCT_CACHE:
+        _IDCT_CACHE[n] = make_idct_matrix(n)
+    m = _IDCT_CACHE[n]
+    return np.einsum("ij,...jk,lk->...il", m, x, m)
+
+
+def read_mat_dct(path: str) -> np.ndarray:
+    """Read an NTCD-TIMIT .mat (v7.3/HDF5) file -> (frames, 4489) float array."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        arrays = [np.array(v) for v in f.values()]
+    if len(arrays) != 1:
+        raise ValueError(f"{path}: expected a single dataset, got {len(arrays)}")
+    return arrays[0]
+
+
+def decode_dct_frames(
+    matlab_frames: np.ndarray,
+    width: int = 67,
+    height: int = 67,
+    norm: str = "frame",
+) -> np.ndarray:
+    """DCT coefficients (frames, width*height) -> decoded video (frames, h, w).
+
+    Pipeline per the reference builder: reshape -> IDCT^2 -> min-max
+    normalize to [0, 255] -> rot90(·, 3). `norm="frame"` is per-frame
+    min-max (matches the shipped fixtures); `norm="global"` uses the global
+    min and the max per-frame range (the current builder code,
+    create_video_train_files_upsampled.py:156).
+    """
+    a = idct2(matlab_frames.reshape(-1, width, height))
+    if norm == "frame":
+        lo = a.min(axis=(-2, -1), keepdims=True)
+        hi = a.max(axis=(-2, -1), keepdims=True)
+        out = (a - lo) / (hi - lo) * 255.0
+    elif norm == "global":
+        scale = (a.max(axis=(-2, -1)) - a.min(axis=(-2, -1))).max()
+        out = (a - a.min()) / scale * 255.0
+    else:
+        raise ValueError(f"unknown norm mode: {norm}")
+    # rot90(·, 3) on each frame (axes (-2, -1)), matching video.py:15
+    return np.rot90(out, 3, axes=(-2, -1)).astype(np.float32)
 
 
 def fps_resample_indices(n_in: int, rate_in: float, rate_out: float) -> np.ndarray:
@@ -64,3 +141,36 @@ def unique_frame_schedule(t_frames: int, video_fps: float = 30.0,
     while len(fps_resample_indices(t_src, video_fps, frame_rate)) < t_frames:
         t_src += 1
     return t_src, fps_resample_indices(t_src, video_fps, frame_rate)[:t_frames]
+
+
+def upsample_video(
+    video: np.ndarray, rate_in: float = 30.0, rate_out: float = 62.5
+) -> np.ndarray:
+    """Re-time (frames, h, w) video from rate_in to rate_out by frame
+    duplication (the reference's ffmpeg `fps=62.5` behavior)."""
+    idx = fps_resample_indices(video.shape[0], rate_in, rate_out)
+    return video[idx]
+
+
+def decode_and_upsample(
+    mat_path: str,
+    width: int = 67,
+    height: int = 67,
+    rate_in: float = 30.0,
+    rate_out: float = 62.5,
+    norm: str = "frame",
+) -> np.ndarray:
+    """Full offline video path: .mat -> decoded, upsampled (h, w, frames)
+    float32, the layout the reference stores in `*_upsampled.h5` ("X")."""
+    frames = decode_dct_frames(read_mat_dct(mat_path), width, height, norm=norm)
+    up = upsample_video(frames, rate_in, rate_out)
+    return np.ascontiguousarray(np.moveaxis(up, 0, -1))
+
+
+def overlay_vad_square(frame: np.ndarray, active: bool, size: int = 9) -> np.ndarray:
+    """White square marker in the bottom-right corner when VAD is active
+    (the reference's visualization overlay, video.py:18-19)."""
+    out = frame.copy()
+    if active:
+        out[-size:, -size:] = 255
+    return out

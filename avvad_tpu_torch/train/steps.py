@@ -35,9 +35,9 @@ def _tensor(a, device) -> torch.Tensor | None:
 
 def normalize(x: torch.Tensor, mean, std, eps: float = 1e-8) -> torch.Tensor:
     """(x - mean) / (std + eps), with (dim, 1)- or (dim,)-shaped statistics
-    against (B, T, dim) features (train_AV_net.py:286-291)."""
-    m, s = (torch.as_tensor(np.asarray(v, np.float32), device=x.device)
-            for v in (mean, std))
+    (numpy, or tensors) against (B, T, dim) features
+    (train_AV_net.py:286-291)."""
+    m, s = (_tensor(v, x.device) for v in (mean, std))
     m = m[..., 0] if m.ndim == 2 else m
     s = s[..., 0] if s.ndim == 2 else s
     return (x - m) / (s + eps)

@@ -3,10 +3,15 @@
 Per epoch: a train pass with per-batch lines in ``output_batch.log``, an
 eval pass, a summary in ``output_epoch.log`` (the reference's line
 formats), a checkpoint named by epoch and validation loss, and pruning.
-Batches are any re-iterable of host ``Batch`` with a length (a list, or a
-loader with ``len``); a ``source`` attribute, where present, gives the
-number of utterances, and an ``epoch`` attribute is set to the trainer's
-epoch before its pass.
+Batches come from a ``data.DataLoader``, or any re-iterable of host
+``Batch`` with a length (a list); a ``source`` attribute, where present,
+gives the number of utterances, and an ``epoch`` attribute is set to the
+trainer's epoch before its pass, so that a resumed run does not replay
+the shuffles of the epochs it has trained. With ``prefetch`` (the default,
+as in JAX) each pass's batches go to the state's device through a
+``data.Prefetcher``. The JAX trainer's ``prewarm=`` (XLA compiles ahead,
+in parallel) has no PyTorch counterpart, and its ``mesh=`` waits for the
+port's ``torch.distributed`` scale-out.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import os
 import time
 
+from ..data import Prefetcher
 from .checkpoint import prune_checkpoints, save_checkpoint
 from .steps import make_eval_step, make_train_step
 
@@ -39,12 +45,13 @@ class MetricAccumulator:
 class Trainer:
     def __init__(self, state, modality: str, model_dir: str,
                  norm_stats: dict | None = None, eps: float = 1e-8,
-                 log_interval: int = 1):
+                 log_interval: int = 1, prefetch: bool = True):
         self.state = state
         self.modality = modality
         self.model_dir = model_dir
         self.norm_stats = norm_stats
         self.log_interval = log_interval
+        self.prefetch = prefetch
         self.train_step = make_train_step(modality, eps)
         self.eval_step = make_eval_step(modality, eps)
         os.makedirs(model_dir, exist_ok=True)
@@ -55,14 +62,19 @@ class Trainer:
         with open(path, "a") as f:
             f.write(line + "\n")
 
+    def _iter(self, batches):
+        return (Prefetcher(batches, device=self.state.device) if self.prefetch
+                else iter(batches))
+
     def train_epoch(self, batches, epoch: int) -> dict:
         if hasattr(batches, "epoch"):
             batches.epoch = epoch
         n_total = (len(batches.source) if hasattr(batches, "source")
                    else sum(b.batch_size for b in batches))
+        n_batches = len(batches)
         acc = MetricAccumulator()
         seen = 0
-        for batch_idx, batch in enumerate(batches):
+        for batch_idx, batch in enumerate(self._iter(batches)):
             self.state, metrics = self.train_step(self.state, batch, self.norm_stats)
             m = _to_float(metrics)
             acc.add(m)
@@ -74,7 +86,7 @@ class Trainer:
                     "Loss: {:.2f}    Accuracy: {:.2f}    Precision: {:.2f}    "
                     "Recall: {:.2f}    F1-score.: {:.2f}".format(
                         epoch, seen, n_total,
-                        int(100.0 * (batch_idx + 1) / len(batches)),
+                        int(100.0 * (batch_idx + 1) / n_batches),
                         m["loss"], m["accuracy"], m["precision"],
                         m["recall"], m["f1"],
                     ),
@@ -83,7 +95,7 @@ class Trainer:
 
     def eval_epoch(self, batches) -> dict:
         acc = MetricAccumulator()
-        for batch in batches:
+        for batch in self._iter(batches):
             metrics, _ = self.eval_step(self.state, batch, self.norm_stats)
             acc.add(_to_float(metrics))
         return acc.mean()

@@ -117,7 +117,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
     with the calibrated static-int8 tower (the channels-last K3 once and K2
     eight times a tick on its 288 unique frames), with the checks of phase
     13, one {"streaming": ...} line each;
-15. one {"kernels": [...]} line (21 rows), then the card's name and power
+15. the corpus path at full width: one line saying whether h5py is
+    importable here, which picks the route: with it, a raw NTCD-TIMIT tree
+    made from the seed under build/ (2-8 s utterances, DCT video as
+    HDF5 .mat files, white noise at -5 dB), the port's builders and
+    AudioVisualSource over the processed tree; without it, SyntheticCorpus
+    (the same utterances in memory, through the port's host STFT and VAD
+    labels). 32 train, 16 validation and 64 test utterances. Trainer.fit,
+    one epoch of the fp32 AVVAD (MCB 1024, 2 x LSTM 1024, ResNet-18
+    frozen) on DataLoader(batch_size=16, bucket=128, shuffled), with the
+    Prefetcher, without it and with it again, each with its launch counts
+    (the persistent K1d / K1e 2 + 2 a train batch, K1a 2 a validation
+    batch) and its epoch seconds; the trained weights in the static-int8
+    fused tower, calibrate_quant_scales on the train split, evaluate_split
+    over the test split (batch 8, bucket ladder, one .npy pair an
+    utterance) for state_quant none and int8 with the launch counts (K3 1,
+    K2 8, the persistent K1a or K1b 2 a batch), rt_factor and peak memory,
+    every soft prediction against the same batches through the predict
+    step with the plain K2 / K3 and the plain recurrence; the loader alone
+    over the test split (the host feed's time); one more evaluate_split
+    under torch.profiler for the device's idle share; the
+    predictions scored (score_split on disk, else compute_stats over
+    f1_metrics and roc_auc); one {"corpus": ...} line;
+16. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
@@ -127,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -255,6 +278,16 @@ SOLO_TOL = {"audio": 1e-5, "av": 5e-4, "video": 1e-2, "video_fp32": 1e-5}
 # same shapes on the same card
 PIPE_TOL = 1e-6
 BUILD = Path(__file__).resolve().parent / "build"
+# the corpus phase: NTCD-TIMIT's shapes (16 kHz, 2-8 s utterances: 125-500
+# frames at 62.5 fps), utterances a split, the reference recipe's batch for
+# training and evaluate.py's for evaluation, bucket 128
+CORPUS_FS = 16000
+CORPUS_SPLITS = {"train": 32, "validation": 16, "test": 64}
+CORPUS_SPLIT_DIR = {"train": "train", "validation": "dev", "test": "test"}
+CORPUS_SPLIT_CODE = {"train": 0, "validation": 1, "test": 2}
+CORPUS_DUR = (2.0, 8.0)
+CORPUS_TRAIN_B, CORPUS_EVAL_B, CORPUS_BUCKET = 16, 8, 128
+CORPUS_BUILD_WORKERS = 8
 
 
 def card_line() -> str:
@@ -704,7 +737,6 @@ def main_path(lstm_fused, rows):
 
 def int8_path(rows):
     """The static-int8 tower on the fused kernels: K3 -> 8 x K2 -> LSTM."""
-    import avvad_tpu_torch.models.resnet as resnet_mod
     from avvad_tpu_torch.export import make_waveform_serving_fn
     from avvad_tpu_torch.models import AVVAD, ResNet18, calibrate
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
@@ -740,14 +772,8 @@ def int8_path(rows):
         rows["k2"]["launches"] = counts[conv_fused.KERNEL_NAME]
         rows["k3_nhwc"]["launches"] = counts[stem_fused.NHWC_KERNEL_NAME]
         check_probs(probs, f"int8 tower {sq}")
-        block_kernel = conv_fused.basic_block_int8
-        resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
-        conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
-        try:
+        with plain_k2_k3():
             ref = fn(wave, video)
-        finally:
-            resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
-            conv_fused.basic_block_int8 = block_kernel
         err = (probs - ref).abs().max().item()
         if err > INT8_PROB_TOL:
             raise RuntimeError(f"int8 tower {sq}: step vs plain K2/K3 {err}")
@@ -844,6 +870,22 @@ def plain_inference(lstm_fused):
         yield
     finally:
         lstm_mod.lstm_layer_fused = lstm_fused.lstm_layer_fused
+
+
+@contextlib.contextmanager
+def plain_k2_k3():
+    """The int8 tower's K2 and K3 replaced by their plain versions."""
+    import avvad_tpu_torch.models.resnet as resnet_mod
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    block_kernel = conv_fused.basic_block_int8
+    resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
+    conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
+    try:
+        yield
+    finally:
+        resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
+        conv_fused.basic_block_int8 = block_kernel
 
 
 @contextlib.contextmanager
@@ -1601,7 +1643,6 @@ def int8_tick_checks(make, outs, pcm, video, label: str) -> dict:
     the counters at 0 before and read after (the channels-last K3 once, K2
     eight times, nothing else), equal to the run's first ticks; then the
     same ticks with the plain K2 / K3 -> summary entries."""
-    import avvad_tpu_torch.models.resnet as resnet_mod
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
 
     def ticks(ms, count: bool) -> float:
@@ -1623,15 +1664,9 @@ def int8_tick_checks(make, outs, pcm, video, label: str) -> dict:
     worst = ticks(make(), True)
     if worst > PIPE_TOL:
         raise RuntimeError(f"{label}: a second run differs by {worst}")
-    block_kernel = conv_fused.basic_block_int8
     ref = make()
-    resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_plain
-    conv_fused.basic_block_int8 = conv_fused.basic_block_int8_plain
-    try:
+    with plain_k2_k3():
         worst = ticks(ref, False)
-    finally:
-        resnet_mod.stem_epilogue_pool_quant = stem_fused.stem_epilogue_pool_quant
-        conv_fused.basic_block_int8 = block_kernel
     print(f"streaming {label}: launches a tick {conv_fused.KERNEL_NAME} 8, "
           f"{stem_fused.NHWC_KERNEL_NAME} 1; 3 ticks against the plain K2/K3: max |diff| "
           f"{worst:.2e} (tol {INT8_PROB_TOL:g})")
@@ -1735,6 +1770,397 @@ def video_streaming_phase() -> None:
                None, up, "video_fp32", "video/float_tower_fp32")
 
 
+# --- the corpus path ---------------------------------------------------------
+
+
+class SyntheticCorpus:
+    """One NTCD-TIMIT split made from the seed, in memory: the route of the
+    corpus phase where ``h5py`` is not installed. It follows the port's
+    source protocol (``__len__``, ``__getitem__``, ``probe_length``,
+    ``rel_path``, ``label_rel_path``, ``metadata``) and yields the dicts of
+    ``data.AudioVisualSource`` at the corpus's shapes: log-power (T, 513)
+    of speech-like audio with Babble-like white noise at -5 dB, 30 fps
+    camera frames upsampled to 62.5 fps (T, 67, 67) in [0, 255], and the
+    energy-VAD labels (T, 1) of the clean speech, 2-8 s an utterance."""
+
+    def __init__(self, split: str, n: int, seed: int = 0, dur: tuple = CORPUS_DUR):
+        self.split, self.n, self.seed = split, n, seed
+        self.durs = np.random.default_rng((seed, CORPUS_SPLIT_CODE[split])).uniform(
+            *dur, size=n)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def rel_path(self, i: int) -> str:
+        spk, utt = corpus_names(self.split, i)
+        return f"ntcd_timit/Noisy/Babble/-5/{CORPUS_SPLIT_DIR[self.split]}/{spk}/{utt}.wav"
+
+    def label_rel_path(self, i: int) -> str:
+        spk, utt = corpus_names(self.split, i)
+        return (f"ntcd_timit/Clean/{CORPUS_SPLIT_DIR[self.split]}/{spk}/"
+                f"{utt}_vad_labels_upsampled.h5")
+
+    def metadata(self, i: int) -> dict:
+        from avvad_tpu_torch.data.sources import parse_utt_metadata
+
+        return parse_utt_metadata(self.rel_path(i))
+
+    def probe_length(self, i: int) -> int:
+        from avvad_tpu_torch.processing.stft import n_stft_frames
+
+        return n_stft_frames(int(self.durs[i] * CORPUS_FS))
+
+    def __getitem__(self, i: int) -> dict:
+        from avvad_tpu_torch.data.records import truncate_common
+        from avvad_tpu_torch.processing import (clean_speech_VAD, fps_resample_indices,
+                                                log_power_spectrogram, stft)
+        from avvad_tpu_torch.processing.audio_io import peak_normalize
+
+        rng = np.random.default_rng((self.seed, CORPUS_SPLIT_CODE[self.split], i))
+        clean, noisy = corpus_audio(rng, float(self.durs[i]))
+        audio = np.ascontiguousarray(log_power_spectrogram(stft(peak_normalize(noisy))).T)
+        label = np.ascontiguousarray(clean_speech_VAD(peak_normalize(clean)).T)
+        camera = corpus_camera(rng, int(np.ceil(self.durs[i] * 30)))
+        video = camera[fps_resample_indices(len(camera), 30.0, FRAME_RATE)]
+        audio, video, label = truncate_common(audio, video, label)
+        return {"audio": audio, "video": video, "label": label,
+                "length": audio.shape[0], **self.metadata(i)}
+
+
+def corpus_names(split: str, i: int) -> tuple[str, str]:
+    """Speaker and utterance of item i: 2 utterances a speaker."""
+    spk = 20 * CORPUS_SPLIT_CODE[split] + i // 2 + 1
+    return f"{spk:02d}{'M' if spk % 2 else 'F'}", f"s{i % 2}"
+
+
+def corpus_audio(rng, dur: float) -> tuple[np.ndarray, np.ndarray]:
+    """-> (clean, noisy) float32 16 kHz: 2-5 voiced harmonic bursts between
+    near silences (so the energy VAD's labels are not constant), and white
+    noise mixed in at -5 dB."""
+    from avvad_tpu_torch.data import mix_at_snr
+
+    n = int(dur * CORPUS_FS)
+    t = np.arange(n) / CORPUS_FS
+    x = rng.normal(size=n) * 1e-4
+    k = int(rng.integers(2, 6))
+    edges = np.sort(rng.uniform(0.05, 0.95, size=2 * k)) * dur
+    for b in range(k):
+        i0 = int(edges[2 * b] * CORPUS_FS)
+        i1 = min(n, int(max(edges[2 * b + 1], edges[2 * b] + 0.1) * CORPUS_FS))
+        f0 = rng.uniform(80, 220)
+        burst = sum(np.sin(2 * np.pi * h * f0 * t[i0:i1] + rng.uniform(0, 2 * np.pi)) / h
+                    for h in range(1, 12))
+        x[i0:i1] += burst * np.hanning(i1 - i0) ** 0.5 * rng.uniform(0.2, 0.5)
+    clean = np.clip(x, -1.0, 1.0).astype(np.float32)
+    noisy = mix_at_snr(clean, rng.normal(size=n).astype(np.float32), -5.0)
+    return clean, noisy / np.abs(noisy).max()
+
+
+def corpus_camera(rng, n: int) -> np.ndarray:
+    """(n, 67, 67) float32 lip-crop stand-ins at 30 fps: smooth fields
+    (17 x 17 AR(1) noise held over 4 x 4 pixels), min-max to [0, 255] per
+    frame, as the corpus's decoded frames are."""
+    base = rng.normal(size=(17, 17))
+    frames = np.empty((n, 17, 17))
+    for f in range(n):
+        base = 0.9 * base + 0.45 * rng.normal(size=(17, 17))
+        frames[f] = base
+    up = np.repeat(np.repeat(frames, 4, axis=1), 4, axis=2)[:, :67, :67]
+    lo = up.min(axis=(1, 2), keepdims=True)
+    hi = up.max(axis=(1, 2), keepdims=True)
+    return ((up - lo) / (hi - lo) * 255.0).astype(np.float32)
+
+
+def corpus_dct(rng, n: int) -> np.ndarray:
+    """(n, 4489) DCT coefficients of smooth low-frequency fields: the raw
+    corpus's ``.mat`` content (scripts/synth_complete_corpus.py)."""
+    i, j = np.meshgrid(np.arange(67), np.arange(67), indexing="ij")
+    envelope = np.exp(-(i + j) / 6.0).ravel()
+    base = rng.normal(size=4489)
+    frames = np.empty((n, 4489), np.float32)
+    for f in range(n):
+        base = 0.9 * base + 0.45 * rng.normal(size=4489)
+        frames[f] = base * envelope * 120.0
+    frames[:, 0] += 4000.0
+    return frames
+
+
+def write_raw_corpus(raw: Path, sizes: dict, seed: int = 0, dur: tuple = CORPUS_DUR) -> None:
+    """A raw NTCD-TIMIT tree under ``raw`` in the corpus's layout
+    (scripts/synth_complete_corpus.py): for each split of ``sizes`` the
+    utterances of ``SyntheticCorpus``, clean and noisy wavs and the video
+    as a DCT ``.mat`` (HDF5) file at 30 fps."""
+    import h5py
+
+    from avvad_tpu_torch.processing import write_wav
+
+    noisy_base = raw / "ntcd_timit/u/drspeech/data/TCDTIMIT/Noisy_TCDTIMIT/Babble/-5/volunteers"
+    for split, n in sizes.items():
+        durs = SyntheticCorpus(split, n, seed, dur).durs
+        for i in range(n):
+            spk, utt = corpus_names(split, i)
+            dirs = (raw / "ntcd_timit/matlab_raw" / CORPUS_SPLIT_DIR[split] / spk,
+                    raw / "ntcd_timit/Clean/volunteers" / spk / "straightcam",
+                    noisy_base / spk / "straightcam")
+            for d in dirs:
+                d.mkdir(parents=True, exist_ok=True)
+            rng = np.random.default_rng((seed, CORPUS_SPLIT_CODE[split], i))
+            clean, noisy = corpus_audio(rng, float(durs[i]))
+            write_wav(str(dirs[1] / f"{utt}.wav"), clean, CORPUS_FS)
+            write_wav(str(dirs[2] / f"{utt}.wav"), noisy, CORPUS_FS)
+            with h5py.File(dirs[0] / f"{utt}.mat", "w") as f:
+                f.create_dataset("data", data=corpus_dct(rng, int(np.ceil(durs[i] * 30))))
+
+
+def corpus_on_disk(root: Path, seed: int = 0) -> dict:
+    """The route where ``h5py`` is installed: ``write_raw_corpus`` under
+    ``root``, the port's builders on it, the port's ``AudioVisualSource``
+    over the processed tree -> {split: source}, the processed root and the
+    built statistics."""
+    from avvad_tpu_torch import builders
+    from avvad_tpu_torch.data import AudioVisualSource, load_statistics
+
+    raw, out = root / "raw", root / "processed"
+    write_raw_corpus(raw, CORPUS_SPLITS, seed)
+    cfg = builders.BuildConfig(raw_dir=str(raw) + "/", processed_dir=str(out) + "/",
+                               dataset_size="subset", upsampled_suffix=True,
+                               max_workers=CORPUS_BUILD_WORKERS)
+    for split in CORPUS_SPLITS:
+        builders.build_video_split(cfg, split)
+        builders.build_audio_split(cfg, split)
+    stats = {}
+    stats["audio_mean"], stats["audio_std"] = load_statistics(
+        str(out / "ntcd_timit/Noisy/ntcd_timit_log_power_spec_upsampled_statistics.h5"))
+    stats["video_mean"], stats["video_std"] = load_statistics(
+        str(out / "ntcd_timit/matlab_raw/ntcd_timit_upsampled_statistics.h5"))
+    return {"sources": {s: AudioVisualSource(str(out) + "/", s) for s in CORPUS_SPLITS},
+            "root": str(out) + "/", "stats": stats}
+
+
+def corpus_in_script(seed: int = 0) -> dict:
+    """The route where ``h5py`` is not installed: ``SyntheticCorpus`` for
+    each split, the statistics from 8 train utterances (``feature_stats``
+    over the log-power; the video's mean and std over all pixels)."""
+    from avvad_tpu_torch.data import feature_stats
+
+    sources = {s: SyntheticCorpus(s, n, seed) for s, n in CORPUS_SPLITS.items()}
+    mean, std = feature_stats(sources["train"], "audio", max_items=8)
+    video = np.concatenate([sources["train"][i]["video"].ravel() for i in range(2)])
+    stats = {"audio_mean": mean[:, None], "audio_std": std[:, None],
+             "video_mean": np.float32([[video.mean()]]),
+             "video_std": np.float32([[video.std()]])}
+    return {"sources": sources, "root": None, "stats": stats}
+
+
+def corpus_score(route: dict, classif_dir: str) -> dict:
+    """The written predictions of the test split against its labels:
+    ``score_split`` on the disk route; on the in-script route the same
+    per-utterance metrics (``f1_metrics``, ``roc_auc``) into
+    ``compute_stats``."""
+    from avvad_tpu_torch.evaluate import compute_stats, prediction_paths, roc_auc, score_split
+    from avvad_tpu_torch.evaluate.classify import METRIC_KEYS
+    from avvad_tpu_torch.models.losses import f1_metrics
+
+    source = route["sources"]["test"]
+    if route["root"] is not None:
+        return score_split(source, route["root"], classif_dir, save_stats=False,
+                           verbose=False, max_workers=8)
+    rows, snrs, noises, speakers = [], [], [], []
+    for i in range(len(source)):
+        item = source[i]
+        hard, soft = (np.load(p) for p in prediction_paths(classif_dir, source.rel_path(i)))
+        y = item["label"][:len(hard)]
+        metrics = f1_metrics(torch.from_numpy(hard[:, None].astype(np.float32)),
+                             torch.from_numpy(y))
+        rows.append([float(v) for v in metrics] + [roc_auc(y, soft)])
+        snrs.append(float(item["snr_db"]))
+        noises.append(item["noise_type"])
+        speakers.append(item["speaker"])
+    return compute_stats(METRIC_KEYS, rows, all_snr_db=np.asarray(snrs),
+                         all_noise_types=noises, all_speakers=speakers, verbose=False)
+
+
+def corpus_fit(state, sources, stats, prefetch: bool) -> dict:
+    """One epoch of Trainer.fit (the train split at B=16, bucket 128,
+    shuffled; the validation split) with its launch counts checked ->
+    the epoch's seconds ([Time] of the epoch log, train and eval passes)
+    and the call's."""
+    from avvad_tpu_torch.data import DataLoader
+    from avvad_tpu_torch.ops import lstm_fused
+    from avvad_tpu_torch.train import Trainer
+
+    loaders = [DataLoader(sources[s], batch_size=CORPUS_TRAIN_B, bucket=CORPUS_BUCKET,
+                          shuffle=s == "train") for s in ("train", "validation")]
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as model_dir:
+        lstm_fused.reset_launches()
+        t0 = time.perf_counter()
+        Trainer(state, "av", model_dir, norm_stats=stats, prefetch=prefetch).fit(
+            *loaders, end_epoch=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(lstm_fused.launches)
+        epoch_log = (Path(model_dir) / "output_epoch.log").read_text()
+    n_train, n_valid = (len(loader) for loader in loaders)
+    expect = {k: 0 for k in counts}
+    expect.update(fwd_train_persist=2 * n_train, bwd_persist=2 * n_train,
+                  none_persist=2 * n_valid)
+    if counts != expect:
+        raise RuntimeError(f"corpus Trainer.fit (prefetch={prefetch}): launch counts "
+                           f"{counts}, expected {expect}")
+    epoch_s = float(epoch_log.split("[Time]")[1].split("s")[0])
+    print(f"corpus Trainer.fit prefetch={prefetch}: epoch {epoch_s} s (train {n_train} "
+          f"batches, valid {n_valid}), call {wall:.3f} s, launches {counts}")
+    return {"epoch_s": epoch_s, "fit_call_s": wall}
+
+
+def corpus_plain_check(state, source, stats, classif_dir: str) -> float:
+    """The same batches as evaluate_split's through the predict step with
+    the plain K2 / K3 and the plain recurrence -> the largest difference
+    from the written soft predictions."""
+    from avvad_tpu_torch.data import DataLoader
+    from avvad_tpu_torch.evaluate import prediction_paths
+    from avvad_tpu_torch.ops import lstm_fused
+    from avvad_tpu_torch.train import make_predict_step
+
+    loader = DataLoader(source, batch_size=CORPUS_EVAL_B, shuffle=False, bucket=CORPUS_BUCKET,
+                        bucket_ladder=True, pad_batch_to_full=True, sort_pool_factor=4)
+    predict = make_predict_step("av")
+    worst = 0.0
+    with plain_k2_k3(), plain_inference(lstm_fused):
+        for batch in loader:
+            probs = predict(state, batch, stats).cpu().numpy()
+            for row, (i, n) in enumerate(zip(batch.indices, batch.lengths)):
+                if i < 0 or n == 0:
+                    continue
+                soft = np.load(prediction_paths(classif_dir, source.rel_path(int(i)))[1])
+                worst = max(worst, float(np.abs(soft - probs[row, :n, 0]).max()))
+    return worst
+
+
+def corpus_phase() -> None:
+    """The corpus path at full width: a source (on disk through the port's
+    builders where h5py is installed, else SyntheticCorpus), Trainer.fit on
+    DataLoader with and without the Prefetcher, calibrate_quant_scales,
+    evaluate_split with the static-int8 tower for state_quant none and
+    int8, scoring; one {"corpus": ...} line."""
+    import importlib.util
+
+    from avvad_tpu_torch.data import DataLoader
+    from avvad_tpu_torch.evaluate import calibrate_quant_scales, evaluate_split
+    from avvad_tpu_torch.models import AVVAD
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.train import create_train_state
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    print(f"corpus: h5py importable on this machine: {has_h5py}; route "
+          f"{'on disk (builders, AudioVisualSource)' if has_h5py else 'in script (SyntheticCorpus)'}")
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        t0 = time.perf_counter()
+        route = corpus_on_disk(Path(tmp)) if has_h5py else corpus_in_script()
+        setup_s = time.perf_counter() - t0
+        sources, stats = route["sources"], route["stats"]
+        test = sources["test"]
+        n_frames_test = sum(test.probe_length(i) for i in range(len(test)))
+        print(f"corpus: {', '.join(f'{s} {len(src)}' for s, src in sources.items())} "
+              f"utterances ({n_frames_test} test frames by the probe), set up in {setup_s:.1f} s")
+
+        # training: fp32, the trunk frozen, as the training phases
+        state = create_train_state(
+            AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                  use_kernel_lstm=True, seed=0), freeze_video_trunk=True)
+        torch.cuda.reset_peak_memory_stats()
+        fits = {f"prefetch_{k}": corpus_fit(state, sources, stats, p)
+                for k, p in (("on", True), ("off", False), ("on_again", True))}
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # evaluation: the trained weights in the static-int8 fused tower
+        model = AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                      use_kernel_lstm=True, tower_int8=True, tower_quant_mode="static",
+                      tower_pallas=True, seed=0)
+        missing, unexpected = model.load_state_dict(state.model.state_dict(), strict=False)
+        if unexpected or any(k.split(".")[-1] not in ("q_stem", "q1", "q_out") for k in missing):
+            raise RuntimeError(f"corpus: int8 model keys: missing {missing}, "
+                               f"unexpected {unexpected}")
+        del state
+        torch.cuda.empty_cache()
+        eval_state = create_train_state(model)
+        t0 = time.perf_counter()
+        calibrate_quant_scales(eval_state, model, sources["train"], "av", norm_stats=stats)
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+        trunk = model.tower.features
+        print(f"corpus: calibrate_quant_scales on {min(8, len(sources['train']))} train "
+              f"utterances in {cal_s:.1f} s; "
+              f"q_stem {trunk.q_stem.item():.4f}, layer4_1.q_out {trunk.layer4_1.q_out.item():.4f}")
+        n_batches = len(DataLoader(test, batch_size=CORPUS_EVAL_B))
+        evals = {}
+        for sq in INT8_STATE_QUANTS:
+            model.set_lstm_state_quant(sq)
+            classif = f"{tmp}/classif_{sq}/"
+            for mod in (lstm_fused, conv_fused, stem_fused):
+                mod.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            report = evaluate_split(eval_state, test, "av", classif, norm_stats=stats,
+                                    batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET,
+                                    verbose=False)
+            torch.cuda.synchronize()
+            counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+            expect = {**dict.fromkeys(counts, 0), sq + "_persist": 2 * n_batches,
+                      conv_fused.KERNEL_NAME: 8 * n_batches,
+                      stem_fused.NHWC_KERNEL_NAME: n_batches}
+            if counts != expect:
+                raise RuntimeError(f"corpus evaluate_split {sq}: launch counts {counts}, "
+                                   f"expected {expect}")
+            n_files = sum(len(fs) for _, _, fs in os.walk(classif))
+            if report["n_utterances"] != len(test) or n_files != 2 * len(test):
+                raise RuntimeError(f"corpus evaluate_split {sq}: {report}, {n_files} files")
+            err = corpus_plain_check(eval_state, test, stats, classif)
+            if err > INT8_PROB_TOL:
+                raise RuntimeError(f"corpus evaluate_split {sq}: against plain K2/K3 and "
+                                   f"the plain recurrence {err}")
+            evals[sq] = {**{k: report[k] for k in ("n_utterances", "n_frames", "elapsed_s",
+                                                   "rt_factor")},
+                         "launches_per_batch": {k: v // n_batches for k, v in counts.items()
+                                                if v},
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "plain_max_abs_diff": err}
+            print(f"corpus evaluate_split int8 tower / {sq}: {report['n_utterances']} utts, "
+                  f"{report['n_frames']} frames in {report['elapsed_s']:.3f} s "
+                  f"({report['rt_factor']:.1f}x real time), {n_batches} batches, launches "
+                  f"{counts}, against plain K2/K3 + recurrence {err:.2e} "
+                  f"(tol {INT8_PROB_TOL:g}), peak {evals[sq]['peak_memory_gib']:.2f} GiB")
+        # the host feed alone: evaluate_split's loader over the test split
+        t0 = time.perf_counter()
+        for _ in DataLoader(test, batch_size=CORPUS_EVAL_B, shuffle=False, bucket=CORPUS_BUCKET,
+                            bucket_ladder=True, pad_batch_to_full=True, sort_pool_factor=4):
+            pass
+        feed_s = time.perf_counter() - t0
+        print(f"corpus: the loader alone over the test split (no device work): {feed_s:.3f} s")
+        prof = profile_step(lambda: evaluate_split(
+            eval_state, test, "av", f"{tmp}/classif_profiled/", norm_stats=stats,
+            batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET, verbose=False))
+        print(f"corpus evaluate_split under torch.profiler: wall "
+              f"{prof['profiled_step_wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.4f}")
+        stats_out = corpus_score(route, f"{tmp}/classif_int8/")
+        overall = stats_out["overall"]
+        if not all(np.isfinite(overall[k]["avg"]) for k in ("accuracy", "precision",
+                                                             "recall", "f1")):
+            raise RuntimeError(f"corpus scoring: {overall}")
+        print(f"corpus scoring ({'score_split' if has_h5py else 'compute_stats'}): "
+              f"{json.dumps(overall)}")
+    print(json.dumps({"corpus": {
+        "route": "on_disk" if has_h5py else "in_script", "h5py": has_h5py,
+        "utterances": {s: len(src) for s, src in sources.items()},
+        "setup_s": setup_s, "train": fits, "train_peak_memory_gib": train_peak,
+        "calibrate_s": cal_s, "evaluate": evals, "test_feed_alone_s": feed_s,
+        "evaluate_profiled": {k: prof[k] for k in ("profiled_step_wall_ms", "device_busy_ms",
+                                                    "device_idle_share", "top_kernels")},
+        "score_overall": overall}}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1782,6 +2208,8 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
     video_streaming_phase()
+    torch.cuda.empty_cache()
+    corpus_phase()
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",

@@ -183,3 +183,99 @@ def test_probe_wrapper_rejects_bad_arguments(bad):
         kw["c0"] = torch.zeros(3, 8)
     with pytest.raises(ValueError):
         lstm_probe(**kw)
+
+
+# --- the card's installations: no h5py, yaml or matplotlib there ---
+
+ABSENT_ON_CARD = ("h5py", "yaml", "matplotlib", "cv2", "librosa", "soundfile")
+
+
+def _module_level_imports(path):
+    """Modules imported where the file runs at import time: everywhere but
+    inside a function body."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module or ""
+            yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(ast.parse(path.read_text(), filename=str(path)).body)
+
+
+def test_port_imports_no_optional_package_at_module_level():
+    """h5py and yaml only inside the functions that read or write HDF5 or
+    YAML; matplotlib, cv2, librosa and soundfile nowhere at module level."""
+    bad = []
+    for path in _port_files():
+        for mod in _module_level_imports(path):
+            if mod.split(".")[0] in ABSENT_ON_CARD:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+    # the walk does see imports inside functions as function-level
+    assert "h5py" in set(_imported_modules(ROOT / "avvad_tpu_torch/data/records.py"))
+
+
+def test_every_port_module_imports_without_h5py_and_yaml():
+    """In a fresh interpreter with ``h5py`` and ``yaml`` unimportable, every
+    module of the package (and chip_smoke.py) imports."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        "import avvad_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(avvad_tpu_torch.__path__,"
+        " 'avvad_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "assert 'jax' not in sys.modules\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 45
+
+
+def test_import_guard_covers_the_corpus_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f"avvad_tpu_torch/{m}.py" for m in (
+        "config", "builders", "processing/audio_io", "processing/stft",
+        "processing/targets", "processing/video", "datasets/ntcd_timit",
+        "datasets/csr1_wjs0", "data/records", "data/statistics", "data/sources",
+        "data/augment", "data/pipeline", "evaluate/stats", "evaluate/predict",
+        "evaluate/classify")} <= names
+
+
+def test_prefetcher_and_trainer_prefetch_raise_without_a_card(monkeypatch, tmp_path):
+    """Prefetcher() and the Trainer's prefetch route need a card unless
+    given device="cpu"; evaluate_split uploads through the same route."""
+    from avvad_tpu_torch.data import Batch, Prefetcher
+    from avvad_tpu_torch.evaluate import evaluate_split
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.train import Trainer, create_train_state
+    from avvad_tpu_torch.train.state import TrainState
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mask = np.ones((1, 3), np.float32)
+    batch = Batch(audio=np.zeros((1, 3, 513), np.float32), video=None,
+                  label=np.ones((1, 3, 1), np.float32), lengths=np.array([3]),
+                  mask=mask)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Prefetcher([batch])
+    got = list(Prefetcher([batch], device="cpu"))
+    assert len(got) == 1 and got[0].audio.device.type == "cpu"
+    state = create_train_state(AudioVAD(lstm_hidden_size=8, lstm_layers=1), device="cpu")
+    card = TrainState(state.model, state.optimizer, torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(card, "audio", str(tmp_path / "card")).fit([batch], [batch], end_epoch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_split(card, [], "audio", str(tmp_path / "eval"), verbose=False)
+    last = Trainer(state, "audio", str(tmp_path / "cpu")).fit([batch], [batch], end_epoch=2)
+    assert state.step == 1 and np.isfinite(last["train"]["loss"])
