@@ -1,14 +1,15 @@
-"""JAX ``AVVAD`` / ``VideoVAD`` / ``AudioVAD`` variables -> the port's
-``state_dict`` (trained ones too: ``batch_stats`` become the BatchNorm
-running statistics).
+"""JAX ``AVVAD`` / ``VideoVAD`` / ``AudioVAD`` / ``RawAudioVAD`` variables
+-> the port's ``state_dict`` (trained ones too: ``batch_stats`` become the
+BatchNorm running statistics).
 
 The input is the Flax variables tree as nested dicts of numpy arrays
 (``params``, ``batch_stats``, ``sketch`` and ``quant`` collections; the
 sketches in plain (d_in, out) or folded (2, d_in, f) form). No Flax is imported: the
 tree is walked as plain dicts. Rules, by leaf name:
 
-- ``kernel`` 4-d (HWIO conv) -> ``weight`` OIHW; ``kernel`` 2-d (Dense,
-  (in, out)) -> ``weight`` (out, in);
+- ``kernel`` 4-d (HWIO conv) -> ``weight`` OIHW; ``kernel`` 3-d (a Conv1D's
+  (W, I, O), the WaveNet encoder's) -> ``Conv1d`` ``weight`` (O, I, W);
+  ``kernel`` 2-d (Dense, (in, out)) -> ``weight`` (out, in);
 - BatchNorm ``scale`` -> ``weight``, ``mean`` -> ``running_mean``, ``var`` ->
   ``running_var`` (plus ``num_batches_tracked``);
 - LSTM ``w_ih`` / ``w_hh`` / ``bias``, Dense ``bias``, the sketches and the
@@ -26,6 +27,12 @@ import numpy as np
 import torch
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+# Flax ``kernel`` by rank -> the torch ``weight`` layout
+_KERNEL_LAYOUT = {
+    4: lambda k: k.transpose(3, 2, 0, 1),  # conv HWIO -> OIHW
+    3: lambda k: k.transpose(2, 1, 0),  # Conv1D (W, I, O) -> (O, I, W)
+    2: lambda k: k.T,  # Dense (in, out) -> (out, in)
+}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):
@@ -37,16 +44,15 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
 
 
 def from_flax_variables(tree: Mapping) -> dict[str, torch.Tensor]:
-    """-> state_dict for ``avvad_tpu_torch.models.AVVAD``, ``VideoVAD`` or
-    ``AudioVAD`` (strict load)."""
+    """-> state_dict for ``avvad_tpu_torch.models.AVVAD``, ``VideoVAD``,
+    ``AudioVAD`` or ``RawAudioVAD`` (strict load)."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats", "sketch", "quant"):
         for path, arr in _flatten(tree.get(collection, {})):
             *mods, leaf = path
             if leaf == "kernel":
                 leaf = "weight"
-                arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4
-                       else arr.T)
+                arr = _KERNEL_LAYOUT[arr.ndim](arr)
             else:
                 leaf = _RENAME.get(leaf, leaf)
             key = ".".join([*mods, leaf])

@@ -1,6 +1,6 @@
 """The raw-input serving step (port of avvad_tpu/export.py:370-445,
-``make_waveform_serving_fn`` for ``AVVAD``, ``AudioVAD`` and
-``VideoVAD``)."""
+``make_waveform_serving_fn`` for ``AVVAD``, ``AudioVAD``, ``RawAudioVAD``
+and ``VideoVAD``)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.vad_nets import AVVAD, AudioVAD, VideoVAD
+from .models.vad_nets import AVVAD, AudioVAD, RawAudioVAD, VideoVAD
 from .ops.stft import log_power_frontend
 
 
@@ -23,7 +23,7 @@ def _stat(norm_stats: Optional[dict], device, *keys):
     return None
 
 
-def make_waveform_serving_fn(model: AVVAD | AudioVAD | VideoVAD, *,
+def make_waveform_serving_fn(model: AVVAD | AudioVAD | RawAudioVAD | VideoVAD, *,
                              t_frames: Optional[int] = None,
                              fs: int = 16000,
                              wlen_sec: float = 64e-3, hop_percent: float = 0.25,
@@ -33,7 +33,9 @@ def make_waveform_serving_fn(model: AVVAD | AudioVAD | VideoVAD, *,
                              device: str | torch.device | None = None) -> Callable:
     """AVVAD: -> ``fn(wave (B, n), video (B, T_src, 67, 67)) -> probs
     (B, T, 1)``, ``t_frames`` required; AudioVAD: -> ``fn(wave) -> probs``;
-    VideoVAD: -> ``fn(video) -> probs`` (the audio options unused).
+    RawAudioVAD: -> ``fn(wave) -> probs`` (B, out_frames, 1), the raw wave
+    through its WaveNet encoder, no STFT and no normalisation; VideoVAD:
+    -> ``fn(video) -> probs`` (the audio options unused for both).
 
     The model moves to ``device`` (the card unless ``device="cpu"``) in
     eval mode. ``norm_stats`` with audio_mean/audio_std (or mean/std) and
@@ -46,7 +48,7 @@ def make_waveform_serving_fn(model: AVVAD | AudioVAD | VideoVAD, *,
     TF32 stays off for matmuls and cuDNN convolutions: the JAX package pins
     fp32 (Precision.HIGHEST) in the STFT DFT and the MCB matmuls, and its
     float convs run in the model dtype, never in TF32."""
-    if not isinstance(model, (AVVAD, AudioVAD, VideoVAD)):
+    if not isinstance(model, (AVVAD, AudioVAD, RawAudioVAD, VideoVAD)):
         raise TypeError(f"unsupported model for serving: {type(model)!r}")
     if isinstance(model, AVVAD) and t_frames is None:
         raise TypeError("AVVAD serving needs t_frames")
@@ -66,6 +68,13 @@ def make_waveform_serving_fn(model: AVVAD | AudioVAD | VideoVAD, *,
         if v_mean is not None:
             video = (video - v_mean) / (v_std + eps)
         return video
+
+    if isinstance(model, RawAudioVAD):
+        @torch.inference_mode()
+        def raw_fn(wave):
+            return torch.sigmoid(model(torch.as_tensor(wave, device=dev)))
+
+        return raw_fn
 
     if isinstance(model, VideoVAD):
         @torch.inference_mode()

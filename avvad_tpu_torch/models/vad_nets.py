@@ -1,13 +1,14 @@
 """The VAD models (port of avvad_tpu/models/vad_nets.py: AudioVAD,
-_VideoTower, VideoVAD and AVVAD), with the float tower or, for inference,
-the W8A8 tower (``tower_int8``; fused kernels with ``tower_pallas`` and
-static scales). Each model has a ``streaming_head`` that advances one block
-with carried LSTM state (``serve.py``).
+RawAudioVAD, _VideoTower, VideoVAD and AVVAD), with the float tower or, for
+inference, the W8A8 tower (``tower_int8``; fused kernels with
+``tower_pallas`` and static scales). Each model but RawAudioVAD has a
+``streaming_head`` that advances one block with carried LSTM state
+(``serve.py``).
 
-Children carry the JAX parameter tree's names (``lstm_audio``,
-``vad_audio``, ``tower.features``, ``mcb``, ``mcb_bn``, ``lstm_merged``,
-``vad_merged``) so ``convert.from_flax_variables`` maps one onto the
-other by rule. The post-MCB BatchNorm normalises every (batch, time)
+Children carry the JAX parameter tree's names (``wavenet_en``,
+``lstm_audio``, ``vad_audio``, ``tower.features``, ``mcb``, ``mcb_bn``,
+``lstm_merged``, ``vad_merged``) so ``convert.from_flax_variables`` maps
+one onto the other by rule. The post-MCB BatchNorm normalises every (batch, time)
 position per channel with eps 1e-8, padded frames included, and the L2
 norm before it is taken over the WHOLE tensor: the batch rows couple
 through it, as in the reference. ``model.train()`` is JAX's
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from .lstm import LSTMStack, select_last
 from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
 from .resnet import ResNet18, batch_norm, lecun_normal_, running_stats_frozen
+from .wavenet import WaveNetEncoder
 
 
 class _VideoTower(nn.Module):
@@ -131,6 +133,40 @@ class AudioVAD(nn.Module):
         out, new_carries = self.lstm_audio(feats.float(), carries=carries,
                                            return_carries=True)
         return self.vad_audio(out.float()), new_carries
+
+
+class RawAudioVAD(nn.Module):
+    """Raw waveform (B, n) -> WaveNet encoder -> LSTM stack -> Dense logits
+    (B, out_frames, y_dim) (vad_nets.py:69-102), the paper's raw-waveform
+    branch. The encoder's adaptive pool re-times the waveform to
+    ``out_frames`` label frames, set once at construction as in JAX.
+
+    The LSTM runs its plain loop (``use_kernel=False``): the JAX module
+    keeps ``LSTMStack``'s default ``use_pallas=False``, a ``lax.scan`` over
+    W_hh in the model dtype, where the kernels read a bf16-rounded W_hh."""
+
+    def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
+                 lstm_layers: int = 2, out_frames: int = 128,
+                 wavenet_kwargs: Optional[dict] = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
+        self.out_frames = out_frames
+        kw = dict(quantization_channels=1, residual_channels=32,
+                  dilation_channels=32, bottleneck_width=64, filter_width=3,
+                  dilations=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+        kw.update(wavenet_kwargs or {})
+        self.wavenet_en = WaveNetEncoder(pool_kernel_size=out_frames, dtype=dtype,
+                                         generator=g, **kw)
+        self.lstm_audio = LSTMStack(kw["bottleneck_width"], lstm_hidden_size,
+                                    lstm_layers, dtype=dtype, use_kernel=False,
+                                    generator=g)
+        self.vad_audio = _head(lstm_hidden_size, y_dim, g)
+
+    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        x = self.wavenet_en(waveform[..., None])  # (B, out_frames, bottleneck)
+        return self.vad_audio(self.lstm_audio(x).float())
 
 
 class VideoVAD(nn.Module):

@@ -6,12 +6,15 @@ immediately peak-normalizes (`x / max(|x|)`), so any consistent linear scale
 is parity-equivalent; we still match torchaudio's 1/32768 scaling for int16
 so intermediate values agree too.
 
-A copy of avvad_tpu/processing/audio_io.py on its scipy path. The JAX
-package's opt-in C++ decoder (``AVVAD_NATIVE=1``, native/avvad_io.cpp) is
-not ported yet: it comes with the port's C++ stream hub.
+A copy of avvad_tpu/processing/audio_io.py. With ``AVVAD_NATIVE=1``
+``read_wav`` decodes through the port's C++ library (``native.read_wav``,
+built from ``csrc/avvad_io.cpp`` at first use); where that library cannot
+be built the call raises, where the JAX package falls back to scipy.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from scipy.io import wavfile
@@ -29,6 +32,10 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
 
     Multi-channel files return channel 0, mirroring the reference's
     `speech[0]` convention."""
+    if os.environ.get("AVVAD_NATIVE") == "1":
+        from .. import native
+
+        return native.read_wav(path)
     fs, data = wavfile.read(path)
     if data.ndim == 2:
         data = data[:, 0]

@@ -7,7 +7,8 @@ of any size and emits frame-level speech probabilities with bounded
 latency:
 
 - the host keeps only sample buffers and a running peak for normalisation
-  (``native.StreamHub`` for the multi-stream servers);
+  (``native.StreamHub`` for the multi-stream servers: the C++ hub, or with
+  ``native=False`` its numpy route);
 - one device step per fixed frame block: windowed-DFT log-power frontend,
   dataset normalisation, (video tower, fusion,) LSTM with carried (h, c)
   per layer, Dense, sigmoid. The recurrent state crosses block boundaries,
@@ -23,8 +24,7 @@ its Pallas kernel for ``lax.scan`` there too); with ``tower_pallas`` the
 static-int8 tower of an ``AVVAD`` or a ``VideoVAD`` runs on its
 hand-written kernels.
 
-Not ported yet: the ``mesh=`` and ``step_override=`` options, and the C++
-stream hub (no ``native=``).
+Not ported yet: the ``mesh=`` and ``step_override=`` options.
 """
 
 from __future__ import annotations
@@ -361,7 +361,8 @@ class _MultiStreamBase:
         """Whole-streamer reset: drop any in-flight pipelined tick."""
         self._pending_tick = None
 
-    def _init_audio(self, stft_cfg, norm_stats, span_wire, hop_dft, audio_int16):
+    def _init_audio(self, stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
+                    native):
         """Wire options, hub and frontend constants of the audio side."""
         if hop_dft and not span_wire:
             raise ValueError("hop_dft frontend requires span_wire=True "
@@ -377,7 +378,7 @@ class _MultiStreamBase:
         self._nfft = stft_cfg.nfft
         self._hop = stft_cfg.hopsamp
         self._hub = StreamHub(self.n, self._nfft, self._hop, self.block_frames,
-                              dtype=self._adtype)
+                              force_python=not native, dtype=self._adtype)
         self._cos, self._sin = _on(self._dev, _windowed_dft_bases, self._nfft)
         self._a_mean = _norm_stat(norm_stats, "audio_mean", self._dev)
         self._a_std = _norm_stat(norm_stats, "audio_std", self._dev)
@@ -426,17 +427,21 @@ class MultiStreamVAD(_MultiStreamBase):
     device, exactly. hop_dft (requires span_wire): the hop-block DFT
     frontend on the span. audio_int16 (requires span_wire): buffer and
     ship raw int16 PCM, half the float span's payload, exact for 16-bit
-    sources; feed() then takes np.int16 samples."""
+    sources; feed() then takes np.int16 samples. native: the samples buffer
+    in the C++ hub (built at first use; raises if it cannot be built);
+    False takes the hub's numpy route, which assembles the same blocks."""
 
     def __init__(self, model: AudioVAD, n_streams: int,
                  norm_stats: Optional[dict] = None,
                  stft_cfg: STFTConfig = STFTConfig(), block_frames: int = 16,
                  max_backlog_blocks: int = 32, span_wire: bool = False,
                  hop_dft: bool = False, audio_int16: bool = False,
+                 native: bool = True,
                  device: str | torch.device | None = None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
                            device)
-        self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16)
+        self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
+                         native)
         self.reset()
 
     def reset(self) -> None:
@@ -668,8 +673,8 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
     only the block's unique source frames with a per-stream gather
     schedule, the tower runs on the uniques, and features are gathered
     onto the 62.5 fps timeline on the device. span_wire / hop_dft /
-    audio_int16: see MultiStreamVAD. video_uint8: lip frames travel as
-    uint8 and are dequantised on the device."""
+    audio_int16 / native: see MultiStreamVAD. video_uint8: lip frames
+    travel as uint8 and are dequantised on the device."""
 
     def __init__(self, model: AVVAD, n_streams: int,
                  norm_stats: Optional[dict] = None,
@@ -677,10 +682,12 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
                  max_backlog_blocks: int = 32, video_uint8: bool = False,
                  span_wire: bool = False, hop_dft: bool = False,
                  video_fps: Optional[float] = None, audio_int16: bool = False,
+                 native: bool = True,
                  device: str | torch.device | None = None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
                            device)
-        self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16)
+        self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
+                         native)
         self.video_uint8 = video_uint8
         self._vdtype = np.uint8 if video_uint8 else np.float32
         self._v_mean = _norm_stat(norm_stats, "video_mean", self._dev)

@@ -9,8 +9,9 @@ as JAX's ``train=True``: BatchNorm on batch statistics, running
 statistics updated; under autograd the LSTM runs its training kernels.
 Eval and predict run in eval mode without autograd: the inference
 kernel. The modalities are "audio" (``AudioVAD``), "video" (``VideoVAD``,
-its ResNet-18 trained with the rest) and "av" (``AVVAD``, the trunk frozen
-or not); the JAX package's "waveform" (``RawAudioVAD``) is not ported.
+its ResNet-18 trained with the rest), "av" (``AVVAD``, the trunk frozen
+or not) and "waveform" (``RawAudioVAD`` on ``Batch.waveform``, which is
+not normalised).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from ..models.losses import batch_mean_f1_metrics, masked_sequence_bce
 
-MODALITIES = ("audio", "video", "av")
+MODALITIES = ("audio", "video", "av", "waveform")
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -46,6 +47,8 @@ def normalize(x: torch.Tensor, mean, std, eps: float = 1e-8) -> torch.Tensor:
 def _forward_inputs(modality: str, batch, norm_stats, eps: float, device) -> tuple:
     """The model's positional inputs for a batch, on ``device``, normalised
     where the statistics are given."""
+    if modality == "waveform":
+        return (_tensor(batch.waveform, device),)
     audio, video = _tensor(batch.audio, device), _tensor(batch.video, device)
     stats = norm_stats or {}
     if audio is not None and stats.get("audio_mean") is not None:
@@ -66,7 +69,7 @@ def _make_forward(modality: str, eps: float, train: bool):
     """-> ``forward(state, batch, norm_stats) -> (logits, label, mask)`` on
     the state's device, the model in train or eval mode."""
     if modality not in MODALITIES:
-        raise ValueError(f"modality {modality!r} is not ported (have {MODALITIES})")
+        raise ValueError(f"unknown modality {modality!r} (have {MODALITIES})")
 
     def forward(state, batch, norm_stats):
         dev = state.device

@@ -5,7 +5,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 1. card check (no CUDA device -> exit 1) and the card's name and power limit;
 2. build every kernel of avvad_tpu_torch/csrc with nvcc (sm_90a), one
-   process per source;
+   process per source, and the host library (csrc/avvad_io.cpp, the C++
+   stream hub) with g++;
 3. each LSTM inference kernel against its plain PyTorch version on the
    card, with CUDA-event times of the kernel, the plain version and one
    cuDNN torch.nn.LSTM layer, and the bound from the shapes. For each
@@ -103,7 +104,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
     reset with a tick pending delivers nothing of the old stream; ms/tick,
     x real time, peak memory, the LSTM loop's share, the device's idle
     share of one step under torch.profiler, one {"streaming": ...} line
-    each;
+    each. Before them the same feeds through the C++ stream hub and its
+    numpy route in turns (feed + assemble ms a tick of each, the blocks,
+    peaks and masks bit-equal; one {"hub": ...} line); after them the TCP
+    server (VADServer) over sockets: 32 localhost client threads each send
+    a whole stream (40 blocks: int16 P and uint8 U messages to the AV
+    server with the static-int8 tower, int16 raw PCM to the AudioVAD fp32
+    server) while poll() runs in the main thread: wall seconds, ms of a
+    poll that ticked, x real time, the hub's ms inside the polls, K3 once
+    and K2 eight times a tick (nothing else), every stream against a solo
+    streamer (5e-4 AV, 1e-5 audio), one {"server": ...} line each;
 14. the video-only family and the trunk's backward: the full-width video
     train step (VideoVAD, its ResNet-18 trained from scratch, 2 x LSTM 1024,
     fp32, Adam 1e-4, B=16, T=512: 8,192 frames through the trunk) with the
@@ -139,7 +149,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
     under torch.profiler for the device's idle share; the
     predictions scored (score_split on disk, else compute_stats over
     f1_metrics and roc_auc); one {"corpus": ...} line;
-16. one {"kernels": [...]} line (21 rows), then the card's name and power
+16. RawAudioVAD serving (WaveNet encoder on cuDNN convolutions, 2 x LSTM
+    1024 as the plain loop, bf16, out_frames 512) through
+    make_waveform_serving_fn at scripts/bench_modalities.py's shape (B=64,
+    131,840 samples an utterance): no kernel launch, probabilities finite
+    in [0, 1], 2 utterances within 2e-2 of the same model on the CPU;
+    ms/step (best of 3 after a warm-up), x real time, peak memory, stage ms
+    by CUDA events (encoder, LSTM, head), and one more step under
+    torch.profiler; one {"profile": "raw_serving", ...} line;
+17. RawAudioVAD training (fp32, Adam 1e-4, make_train_step("waveform")):
+    at B=2 one card step against the CPU's (loss within 1e-5, every
+    gradient within 1e-3 in relative L2); at B=16, T=512 no kernel launch,
+    the loss finite, ms/step, x real time, peak memory, the stage split
+    (encoder forward, LSTM forward, head and loss, backward, optimizer) and
+    one {"profile": "train/waveform", ...} line;
+18. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
 """
@@ -244,6 +268,9 @@ REMAT_TOL = 1e-5
 # spans of a train step between the CUDA events of train_marks and
 # timed_train_step, by the marks that bound them
 TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end"): "tower",
+                ("start", "encoder_start"): "inputs",
+                ("encoder_start", "encoder_end"): "encoder_forward",
+                ("encoder_end", "lstm_start"): "encoder_to_lstm",
                 ("tower_end", "lstm_start"): "fusion",
                 ("start", "lstm_start"): "inputs",
                 ("lstm_start", "lstm_end"): "lstm_forward",
@@ -278,6 +305,12 @@ SOLO_TOL = {"audio": 1e-5, "av": 5e-4, "video": 1e-2, "video_fp32": 1e-5}
 # same shapes on the same card
 PIPE_TOL = 1e-6
 BUILD = Path(__file__).resolve().parent / "build"
+# the server phase: blocks a stream may buffer, since every client sends its
+# whole stream (TICKS blocks) as fast as the socket takes it
+SERVER_BACKLOG = TICKS + 8
+# raw-waveform serving, card against CPU on the same bf16 model: bf16
+# convolutions and recurrence summed in other orders over 512 steps
+RAW_CPU_TOL = 2e-2
 # the corpus phase: NTCD-TIMIT's shapes (16 kHz, 2-8 s utterances: 125-500
 # frames at 62.5 fps), utterances a split, the reference recipe's batch for
 # training and evaluate.py's for evaluation, bucket 128
@@ -703,7 +736,6 @@ def serving_launches(sq: str) -> dict:
 def main_path(lstm_fused, rows):
     from avvad_tpu_torch.export import make_waveform_serving_fn
     from avvad_tpu_torch.models import AVVAD
-    from avvad_tpu_torch.ops import conv_fused, stem_fused
 
     wave, video, idx = serving_inputs()
     model = AVVAD(y_dim=1, lstm_hidden_size=H, lstm_layers=2, use_mcb=True,
@@ -714,11 +746,10 @@ def main_path(lstm_fused, rows):
           f"B={B} T={T} n={N_SAMPLES} t_src={video.shape[1]} (30 fps unique frames)")
     for sq in lstm_fused.STATE_QUANTS:
         model.set_lstm_state_quant(sq)
-        for mod in (lstm_fused, conv_fused, stem_fused):
-            mod.reset_launches()
+        reset_counts()
         probs = fn(wave, video)
         torch.cuda.synchronize()
-        counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+        counts = launch_counts()
         expect = {**dict.fromkeys(counts, 0), **serving_launches(sq)}
         if counts != expect:
             raise RuntimeError(f"{sq}: launch counts {counts}, expected {expect}")
@@ -739,7 +770,7 @@ def int8_path(rows):
     """The static-int8 tower on the fused kernels: K3 -> 8 x K2 -> LSTM."""
     from avvad_tpu_torch.export import make_waveform_serving_fn
     from avvad_tpu_torch.models import AVVAD, ResNet18, calibrate
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
 
     wave, video, idx = serving_inputs()
     model = AVVAD(y_dim=1, lstm_hidden_size=H, lstm_layers=2, use_mcb=True,
@@ -758,11 +789,10 @@ def int8_path(rows):
     fn = make_waveform_serving_fn(model, t_frames=T, video_frame_indices=idx)
     for sq in INT8_STATE_QUANTS:
         model.set_lstm_state_quant(sq)
-        for mod in (lstm_fused, conv_fused, stem_fused):
-            mod.reset_launches()
+        reset_counts()
         probs = fn(wave, video)
         torch.cuda.synchronize()
-        counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+        counts = launch_counts()
         # the stem conv writes channels-last: the channels-last K3, once
         expect = {**dict.fromkeys(counts, 0), **serving_launches(sq),
                   conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1}
@@ -846,6 +876,19 @@ def stem_routes(trunk, video) -> None:
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Largest |got - ref| over the largest |ref|."""
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def launch_counts() -> dict:
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+
+    return {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+
+
+def reset_counts() -> None:
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+
+    for mod in (lstm_fused, conv_fused, stem_fused):
+        mod.reset_launches()
 
 
 @contextlib.contextmanager
@@ -1038,11 +1081,11 @@ def train_batch(t: int, b: int, modality: str, seed: int):
 
 
 def train_marks(model, optimizer, marks: list) -> list:
-    """Hooks that record CUDA events inside a train step at the tower's and
-    the LSTM stack's edges, when the logits' gradient is formed (the start
-    of the backward pass), when the tower's output gradient is (the start
-    of the trunk's backward, where the trunk trains) and around the
-    optimizer step -> handles."""
+    """Hooks that record CUDA events inside a train step at the tower's (or
+    the WaveNet encoder's) and the LSTM stack's edges, when the logits'
+    gradient is formed (the start of the backward pass), when the tower's
+    output gradient is (the start of the trunk's backward, where the trunk
+    trains) and around the optimizer step -> handles."""
     def mark(name):
         return lambda *_: _mark(marks, name)
 
@@ -1051,6 +1094,9 @@ def train_marks(model, optimizer, marks: list) -> list:
             feats.register_hook(mark("tower_backward_start"))
 
     handles = []
+    if hasattr(model, "wavenet_en"):
+        handles += [model.wavenet_en.register_forward_pre_hook(mark("encoder_start")),
+                    model.wavenet_en.register_forward_hook(mark("encoder_end"))]
     if hasattr(model, "tower"):
         handles += [model.tower.register_forward_pre_hook(mark("tower_start")),
                     model.tower.register_forward_hook(mark("tower_end")),
@@ -1094,7 +1140,7 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     compared steps then run cuDNN's deterministic algorithms, so that the
     trunk's weight gradients sum in one order in both."""
     from avvad_tpu_torch.models import AVVAD, AudioVAD, VideoVAD
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.ops import lstm_fused
     from avvad_tpu_torch.train import (create_train_state, make_predict_step,
                                        make_train_step)
 
@@ -1123,13 +1169,12 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
           f"Adam 1e-4, B={b} T={t} ({b * t} frames), lengths {batch.lengths.tolist()}; "
           f"the plan {'takes' if persist else 'refuses'} H={h}")
     torch.backends.cudnn.deterministic = trunk_trains
-    for mod in (lstm_fused, conv_fused, stem_fused):
-        mod.reset_launches()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     first_peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+    counts = launch_counts()
     expect = {k: 0 for k in counts}
     expect.update({fwd: 2, bwd: 2} if persist else {fwd: 2 * t, bwd: 2 * (t + 1)})
     if counts != expect:
@@ -1643,16 +1688,15 @@ def int8_tick_checks(make, outs, pcm, video, label: str) -> dict:
     the counters at 0 before and read after (the channels-last K3 once, K2
     eight times, nothing else), equal to the run's first ticks; then the
     same ticks with the plain K2 / K3 -> summary entries."""
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
 
     def ticks(ms, count: bool) -> float:
         worst = 0.0
         for k in range(3):
             feed_tick(ms, None if pcm is None else pcm[k], video[k], False)
-            for mod in (lstm_fused, conv_fused, stem_fused):
-                mod.reset_launches()
+            reset_counts()
             got = ms.tick()
-            counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+            counts = launch_counts()
             expect = {k_: 0 for k_ in counts}
             expect.update({conv_fused.KERNEL_NAME: 8, stem_fused.NHWC_KERNEL_NAME: 1})
             if count and counts != expect:
@@ -1681,6 +1725,7 @@ def streaming_phase(float_model, int8_model) -> None:
     from avvad_tpu_torch.models import AudioVAD
 
     pcm, video, up = stream_data()
+    hub_phase(pcm)
     span = dict(span_wire=True, hop_dft=True, audio_int16=True)
     print(f"streaming: {STREAMS} streams x {BLOCK} frames a tick "
           f"({STREAMS * BLOCK / FRAME_RATE:.3f} s of audio), {TICKS} ticks; "
@@ -2049,7 +2094,7 @@ def corpus_phase() -> None:
     from avvad_tpu_torch.data import DataLoader
     from avvad_tpu_torch.evaluate import calibrate_quant_scales, evaluate_split
     from avvad_tpu_torch.models import AVVAD
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
     from avvad_tpu_torch.train import create_train_state
 
     has_h5py = importlib.util.find_spec("h5py") is not None
@@ -2099,14 +2144,13 @@ def corpus_phase() -> None:
         for sq in INT8_STATE_QUANTS:
             model.set_lstm_state_quant(sq)
             classif = f"{tmp}/classif_{sq}/"
-            for mod in (lstm_fused, conv_fused, stem_fused):
-                mod.reset_launches()
+            reset_counts()
             torch.cuda.reset_peak_memory_stats()
             report = evaluate_split(eval_state, test, "av", classif, norm_stats=stats,
                                     batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET,
                                     verbose=False)
             torch.cuda.synchronize()
-            counts = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+            counts = launch_counts()
             expect = {**dict.fromkeys(counts, 0), sq + "_persist": 2 * n_batches,
                       conv_fused.KERNEL_NAME: 8 * n_batches,
                       stem_fused.NHWC_KERNEL_NAME: n_batches}
@@ -2161,6 +2205,344 @@ def corpus_phase() -> None:
         "score_overall": overall}}))
 
 
+# --- the TCP server, the C++ hub and the raw-waveform family ------------------
+
+
+def hub_phase(pcm) -> None:
+    """The streaming phase's feeds through the C++ hub and its numpy route,
+    the two in turns each tick: feed + assemble ms a tick for each, and the
+    assembled blocks, peaks and active masks bit-equal; the frames wire on
+    float32 samples and the int16 span wire. One {"hub": ...} line."""
+    from avvad_tpu_torch.native import StreamHub
+
+    summary = {}
+    for wire, dtype, span in (("frames_f32", np.float32, False), ("span_int16", np.int16, True)):
+        hubs = {r: StreamHub(STREAMS, 1024, HOP, BLOCK, force_python=r == "numpy", dtype=dtype)
+                for r in ("native", "numpy")}
+        if [h.is_native for h in hubs.values()] != [True, False]:
+            raise RuntimeError(f"hub {wire}: routes {[h.is_native for h in hubs.values()]}")
+        ms = {r: [] for r in hubs}
+        for k in range(TICKS):
+            chunks = pcm[k] if dtype == np.int16 else pcm[k].astype(np.float32) / 32768.0
+            got = {}
+            for r in (("native", "numpy") if k % 2 else ("numpy", "native")):
+                hub = hubs[r]
+                t0 = time.perf_counter()
+                for i in range(STREAMS):
+                    hub.feed(i, chunks[i])
+                blocks, peaks, active, n_active = hub.assemble(span=span)
+                ms[r].append(1e3 * (time.perf_counter() - t0))
+                got[r] = (blocks.copy(), peaks.copy(), active.copy(), n_active)
+            a, b = got["native"], got["numpy"]
+            if a[3] != STREAMS or b[3] != STREAMS or not all(
+                    x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a[:3], b[:3])):
+                raise RuntimeError(f"hub {wire} tick {k}: native and numpy differ")
+        summary[wire] = {f"{r}_ms_per_tick_{f.__name__}": float(f(v))
+                         for r, v in ms.items() for f in (np.min, np.median)}
+        print(f"hub {wire}: feed + assemble of {STREAMS} streams a tick over {TICKS} ticks, "
+              f"bit-equal; native {np.min(ms['native']):.3f} ms best, "
+              f"{np.median(ms['native']):.3f} median; numpy {np.min(ms['numpy']):.3f} best, "
+              f"{np.median(ms['numpy']):.3f} median")
+    print(json.dumps({"hub": summary}))
+
+
+def server_data():
+    """The streaming phase's data as whole streams for socket clients: int16
+    PCM (STREAMS, n) whose first sample is -32768, the largest |sample|, so
+    that every stream's running peak is fixed from its first sample
+    whatever the server's tick timing; the 30 fps uint8 camera frames; the
+    same frames at 62.5 fps; the per-tick cuts of the PCM."""
+    pcm, video, up = stream_data()
+    pcm = [p.copy() for p in pcm]
+    pcm[0][:, 0] = -32768
+    return np.concatenate(pcm, axis=1), np.concatenate(video, axis=1), up, pcm
+
+
+def serve_clients(server, jobs) -> tuple[list, dict]:
+    """Run each client on a thread and poll the server from this one until
+    every client is done -> (the clients' results, poll statistics). The
+    hub's feed and assemble are timed inside the polls."""
+    import threading
+
+    hub = server.streamer._hub
+    hub_s = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                hub_s[0] += time.perf_counter() - t0
+        return run
+
+    hub.feed, hub.assemble = timed(hub.feed), timed(hub.assemble)
+    results, errs = [None] * len(jobs), []
+
+    def run(i, job):
+        try:
+            results[i] = job()
+        except Exception as e:  # raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, j), daemon=True)
+               for i, j in enumerate(jobs)]
+    ticked, polls = [], 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    deadline = t0 + 300
+    try:
+        while any(t.is_alive() for t in threads) and time.perf_counter() < deadline:
+            p0 = time.perf_counter()
+            if server.poll(0.001):
+                ticked.append(time.perf_counter() - p0)
+            polls += 1
+        wall = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=5)
+    finally:
+        del hub.feed, hub.assemble
+    if any(t.is_alive() for t in threads) or errs:
+        raise RuntimeError(f"server: clients unfinished or failed: {errs}")
+    return results, {"wall_s": wall, "polls": polls, "ticks": len(ticked),
+                     "ms_per_tick_poll_best": 1e3 * min(ticked),
+                     "ms_per_tick_poll_median": 1e3 * float(np.median(ticked)),
+                     "hub_ms_total": 1e3 * hub_s[0],
+                     "hub_ms_per_tick": 1e3 * hub_s[0] / len(ticked)}
+
+
+def server_phase(int8_model) -> None:
+    """The port's VADServer over sockets at full width: STREAMS localhost
+    clients each send a whole stream of the streaming phase's data (TICKS
+    blocks) as fast as the socket takes it, and poll() runs here. The AV
+    server (MultiStreamAVVAD, the static-int8 tower, P and U messages) with
+    the launch counters read around the serving (K3 once and K2 eight times
+    a tick, nothing else), then the audio server (MultiStreamVAD, AudioVAD
+    fp32, int16 raw wire); every stream against a solo streamer fed the
+    same blocks, the hub native. One {"server": ...} line each."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+    from avvad_tpu_torch.server import VADServer, av_stream_client, stream_client
+
+    pcm, video, up, cuts = server_data()
+    n_out = TICKS * BLOCK
+    audio_s = STREAMS * n_out / FRAME_RATE
+    span = dict(span_wire=True, hop_dft=True, audio_int16=True, native=True,
+                max_backlog_blocks=SERVER_BACKLOG)
+    audio = AudioVAD(lstm_hidden_size=H, lstm_layers=2, seed=0)
+    for kind, make, client, solo in (
+            ("av", lambda: serve.MultiStreamAVVAD(int8_model, STREAMS, block_frames=BLOCK,
+                                                  video_fps=30.0, video_uint8=True, **span),
+             lambda srv, i: av_stream_client(srv.address, pcm[i], video[i], n_out,
+                                             chunk=BLOCK * HOP, frames_per_msg=8, timeout=60,
+                                             video_wire="u8", audio_wire="i16"),
+             lambda: serve.StreamingAVVAD(int8_model, block_frames=BLOCK, video_uint8=True)),
+            ("audio", lambda: serve.MultiStreamVAD(audio, STREAMS, block_frames=BLOCK, **span),
+             lambda srv, i: stream_client(srv.address, pcm[i], n_out, chunk=BLOCK * HOP,
+                                          timeout=60, audio_wire="i16"),
+             lambda: serve.StreamingVAD(audio, block_frames=BLOCK))):
+        ms = make()
+        if not ms._hub.is_native:
+            raise RuntimeError(f"server {kind}: the hub is not native")
+        server = VADServer(ms)
+        try:
+            ms.warmup()
+            reset_counts()
+            got, stats = serve_clients(server, [lambda i=i: client(server, i)
+                                                for i in range(STREAMS)])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+        finally:
+            server.close()
+        n = stats["ticks"]
+        expect = ({conv_fused.KERNEL_NAME: 8 * n, stem_fused.NHWC_KERNEL_NAME: n}
+                  if kind == "av" else {})
+        if counts != expect:
+            raise RuntimeError(f"server {kind}: launches {counts} over {n} ticks, "
+                               f"expected {expect}")
+        worst = 0.0
+        ref = solo()
+        for i in range(STREAMS):
+            if got[i].shape != (n_out,) or not np.isfinite(got[i]).all():
+                raise RuntimeError(f"server {kind}: stream {i} got {got[i].shape}")
+            ref.reset()
+            for k in range(TICKS):
+                chunk = cuts[k][i].astype(np.float32)  # int-domain values and peak
+                frames = up[i, k * BLOCK:(k + 1) * BLOCK]
+                want = ref.feed(chunk, frames) if kind == "av" else ref.feed(chunk)
+                worst = max(worst, float(np.abs(got[i][k * BLOCK:(k + 1) * BLOCK]
+                                                - want).max()))
+        tol = SOLO_TOL[kind]
+        summary = {"server": kind, "streams": STREAMS, "blocks_per_stream": TICKS,
+                   "hub_native": True, **stats, "x_real_time": audio_s / stats["wall_s"],
+                   "launches_per_tick": {k: v / n for k, v in counts.items()},
+                   "solo_max_abs_diff": worst, "solo_tol": tol}
+        print(f"server {kind}: {STREAMS} clients x {n_out} frames in {stats['wall_s']:.3f} s "
+              f"({summary['x_real_time']:.0f}x real time through the sockets), {n} ticks in "
+              f"{stats['polls']} polls, a ticking poll {stats['ms_per_tick_poll_best']:.2f} ms "
+              f"best, {stats['ms_per_tick_poll_median']:.2f} median, hub "
+              f"{stats['hub_ms_per_tick']:.3f} ms a tick; launches a tick "
+              f"{summary['launches_per_tick']}; every stream against solo: max |diff| "
+              f"{worst:.2e} (tol {tol:g})")
+        print(json.dumps(summary))
+        if worst > tol:
+            raise RuntimeError(f"server {kind}: against solo {worst}")
+        del ms, server
+        torch.cuda.empty_cache()
+
+
+def raw_model(dtype, h: int = H):
+    from avvad_tpu_torch.models import RawAudioVAD
+
+    return RawAudioVAD(lstm_hidden_size=h, lstm_layers=2, out_frames=T, dtype=dtype, seed=0)
+
+
+def raw_serving_phase() -> None:
+    """RawAudioVAD bf16 (WaveNet encoder, 2 x LSTM 1024, out_frames 512)
+    through make_waveform_serving_fn at scripts/bench_modalities.py's shape
+    (B=64, 131,840 samples an utterance): no kernel launch; probabilities
+    checked and 2 utterances against the same model on the CPU; ms/step,
+    x real time, peak memory, stage ms by CUDA events (encoder, LSTM, head)
+    and one more step under torch.profiler. One {"profile": ...} line."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+
+    model = raw_model(torch.bfloat16)
+    fn = make_waveform_serving_fn(model)
+    rng = np.random.default_rng(3)
+    wave = torch.from_numpy(rng.standard_normal((B, N_SAMPLES), np.float32) * 0.3).cuda()
+    print(f"raw serving: RawAudioVAD bf16, WaveNet receptive field "
+          f"{model.wavenet_en.receptive_field}, 2 x LSTM {H} (plain loop), B={B}, "
+          f"{N_SAMPLES} samples an utterance -> {T} frames ({B * T / FRAME_RATE:.1f} s a step)")
+    reset_counts()
+    probs = fn(wave)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts or probs.shape != (B, T, 1) or not torch.isfinite(probs).all() \
+            or probs.min() < 0 or probs.max() > 1:
+        raise RuntimeError(f"raw serving: {tuple(probs.shape)}, launches {counts}")
+    cpu = copy.deepcopy(model).cpu()
+    ref = make_waveform_serving_fn(cpu, device="cpu")(wave[:2].cpu())
+    err = (probs[:2].cpu() - ref).abs().max().item()
+    print(f"raw serving: no kernel launched; 2 utterances against the CPU: max |diff| "
+          f"{err:.2e} (tol {RAW_CPU_TOL:g})")
+    if not err <= RAW_CPU_TOL:
+        raise RuntimeError(f"raw serving: card against CPU {err}")
+    del cpu
+    marks = []
+    hooks = [register(lambda *_: _mark(marks))
+             for mod in (model.wavenet_en, model.lstm_audio)
+             for register in (mod.register_forward_pre_hook, mod.register_forward_hook)]
+    torch.cuda.reset_peak_memory_stats()
+    reps = []
+    try:
+        for _ in range(3):
+            marks.clear()
+            t0 = time.perf_counter()
+            _mark(marks)
+            fn(wave)
+            _mark(marks)
+            torch.cuda.synchronize()
+            ev = [e for _, e in marks]
+            reps.append((time.perf_counter() - t0, {
+                "input": ev[0].elapsed_time(ev[1]), "encoder": ev[1].elapsed_time(ev[2]),
+                "lstm": ev[3].elapsed_time(ev[4]), "head": ev[4].elapsed_time(ev[5])}))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    step, stage_ms = min(reps, key=lambda r: r[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    audio_s = B * T / FRAME_RATE  # the label frames served, as every x real time here
+    print(f"raw serving: {1e3 * step:.2f} ms/step (reps {[round(1e3 * r[0], 2) for r in reps]}), "
+          f"{audio_s / step:.1f}x real time, peak mem {peak:.2f} GiB")
+    print(json.dumps({"profile": "raw_serving", "ms_per_step": 1e3 * step,
+                      "x_real_time": audio_s / step, "peak_mem_gib": peak,
+                      "stage_ms": stage_ms, "card_vs_cpu_max_abs_diff": err,
+                      **no_stem(profile_step(fn, wave))}))
+
+
+def no_stem(prof: dict) -> dict:
+    """A profile of a path with no int8 tower, without the stem's split."""
+    return {k: v for k, v in prof.items() if k != "stem_split_ms"}
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def raw_batch(b: int, seed: int):
+    """A seeded waveform batch: b utterances of N_SAMPLES samples, T label
+    frames, ragged lengths in [T/2, T] (the first full)."""
+    from avvad_tpu_torch.data import Batch
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(T // 2, T + 1, size=b)
+    lengths[0] = T
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    label = (rng.random((b, T, 1)) > 0.5).astype(np.float32) * mask[..., None]
+    wave = (rng.standard_normal((b, N_SAMPLES)) * 0.3).astype(np.float32)
+    return Batch(audio=None, video=None, label=label, lengths=lengths, mask=mask,
+                 waveform=wave)
+
+
+def raw_train_phase() -> None:
+    """RawAudioVAD fp32 through make_train_step("waveform"), Adam 1e-4, TF32
+    off: at B=2 one card step against the same step on the CPU (loss,
+    every gradient in relative L2); at B=TRAIN_B no kernel launch, the
+    loss finite, ms/step (best of 3 after a warm-up), x real time, peak
+    memory, the stage split by CUDA events and one {"profile": ...} line."""
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    step = make_train_step("waveform")
+    model = raw_model(torch.float32)
+    cpu_model = copy.deepcopy(model)
+    small = raw_batch(2, seed=5)
+    state, metrics = step(create_train_state(model, learning_rate=1e-4), small)
+    cpu_state, cpu_metrics = step(create_train_state(cpu_model, learning_rate=1e-4,
+                                                     device="cpu"), small)
+    loss, cpu_loss = metrics["loss"].item(), cpu_metrics["loss"].item()
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    cpu_grads = dict(cpu_model.named_parameters())
+    grad_err = max(rel_l2(g.cpu(), cpu_grads[n].grad) for n, g in grads.items())
+    print(f"raw train: RawAudioVAD fp32, 2 x LSTM {H}, B=2 against the CPU: loss {loss:.6f} "
+          f"rel {loss_err:.2e} (tol {STEP_LOSS_REL_TOL:g}), grads rel L2 {grad_err:.2e} "
+          f"(tol {STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors")
+    if not (np.isfinite(loss) and loss_err <= STEP_LOSS_REL_TOL
+            and grad_err <= STEP_GRAD_REL_TOL):
+        raise RuntimeError(f"raw train: card against CPU loss {loss_err}, grads {grad_err}")
+    del state, cpu_state, cpu_model, model
+    torch.cuda.empty_cache()
+
+    state = create_train_state(raw_model(torch.float32), learning_rate=1e-4)
+    batch = raw_batch(TRAIN_B, seed=6)
+    reset_counts()
+    state, metrics = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts or not np.isfinite(metrics["loss"].item()):
+        raise RuntimeError(f"raw train: launches {counts}, loss {metrics['loss'].item()}")
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    hooks = train_marks(state.model, state.optimizer, marks)
+    try:
+        reps = [timed_train_step(step, state, batch, marks) for _ in range(3)]
+    finally:
+        for hk in hooks:
+            hk.remove()
+    dt, stage_ms = min(reps, key=lambda r: r[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    audio_s = TRAIN_B * T / FRAME_RATE
+    print(f"raw train: B={TRAIN_B} T={T}, no kernel launched, loss "
+          f"{metrics['loss'].item():.6f}; {1e3 * dt:.2f} ms/step (reps "
+          f"{[round(1e3 * r[0], 2) for r in reps]}), {audio_s / dt:.1f}x real time, "
+          f"peak mem {peak:.2f} GiB")
+    print(json.dumps({"profile": "train/waveform", "ms_per_step": 1e3 * dt,
+                      "x_real_time": audio_s / dt, "peak_mem_gib": peak,
+                      "stage_ms": stage_ms, **no_stem(profile_step(step, state, batch))}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2170,10 +2552,14 @@ def main() -> None:
     from avvad_tpu_torch.processing import unique_frame_schedule
     from avvad_tpu_torch.tools import lstm_probe as probe_tool
 
+    from avvad_tpu_torch import native
+
     info = _build.build(force=True)
     print(f"built {info['path']} in {info['seconds']:.1f} s")
     for line in info["ptxas"]:
         print(f"  {line}")
+    host = native.build(force=True)
+    print(f"built {host['path']} (g++) in {host['seconds']:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(lstm_fused)
@@ -2196,6 +2582,7 @@ def main() -> None:
     probe_tool_phase(lstm_fused, probe_tool, rows)
     frontend_phase()
     streaming_phase(float_model, int8_model)
+    server_phase(int8_model)
     del float_model, int8_model
     torch.cuda.empty_cache()
     # the video-only family and the trunk's backward
@@ -2210,6 +2597,10 @@ def main() -> None:
     video_streaming_phase()
     torch.cuda.empty_cache()
     corpus_phase()
+    torch.cuda.empty_cache()
+    raw_serving_phase()
+    torch.cuda.empty_cache()
+    raw_train_phase()
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",

@@ -69,6 +69,21 @@ def test_video_serving_fn_raises_without_a_card(monkeypatch):
     assert probs.shape == (1, 2, 1) and probs.device.type == "cpu"
 
 
+def test_raw_audio_serving_fn_raises_without_a_card(monkeypatch):
+    """The RawAudioVAD branch of the serving entry point."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import RawAudioVAD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = RawAudioVAD(lstm_hidden_size=8, lstm_layers=1, out_frames=3,
+                        wavenet_kwargs=dict(dilations=(1, 2), residual_channels=4,
+                                            dilation_channels=4, bottleneck_width=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_waveform_serving_fn(model)
+    probs = make_waveform_serving_fn(model, device="cpu")(np.zeros((1, 64), np.float32))
+    assert probs.shape == (1, 3, 1) and probs.device.type == "cpu"
+
+
 @pytest.mark.parametrize("bad", ["state_quant", "w_shape", "h0_shape"])
 def test_lstm_wrapper_rejects_bad_arguments(bad):
     from avvad_tpu_torch.ops.lstm_fused import lstm_layer_fused
@@ -110,8 +125,8 @@ def test_train_entry_points_raise_without_a_card(monkeypatch):
                   mask=mask)
     state, metrics = make_train_step("audio")(state, batch)
     assert state.step == 1 and metrics["loss"].device.type == "cpu"
-    with pytest.raises(ValueError, match="not ported"):
-        make_train_step("waveform")
+    with pytest.raises(ValueError, match="unknown modality"):
+        make_train_step("spectrogram")
 
 
 @pytest.mark.parametrize("state_quant", ["bf16", "int8"])
@@ -131,7 +146,8 @@ def test_quantised_recurrence_refuses_gradients(state_quant):
 def test_import_guard_covers_the_streaming_and_probe_modules():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"avvad_tpu_torch/serve.py", "avvad_tpu_torch/native.py",
-            "avvad_tpu_torch/config.py",
+            "avvad_tpu_torch/server.py", "avvad_tpu_torch/config.py",
+            "avvad_tpu_torch/models/wavenet.py",
             "avvad_tpu_torch/tools/lstm_probe.py"} <= names
 
 

@@ -161,9 +161,9 @@ def _l2_rel(got, ref):
 
 
 def test_video_modality_is_ported():
-    assert MODALITIES == ("audio", "video", "av")
-    with pytest.raises(ValueError, match="not ported"):
-        make_train_step("waveform")
+    assert MODALITIES == ("audio", "video", "av", "waveform")
+    with pytest.raises(ValueError, match="unknown modality"):
+        make_train_step("spectrogram")
 
 
 @pytest.mark.parametrize("run", RUNS)
