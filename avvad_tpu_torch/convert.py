@@ -14,7 +14,7 @@ tree is walked as plain dicts. Rules, by leaf name:
   ``running_var`` (plus ``num_batches_tracked``);
 - LSTM ``w_ih`` / ``w_hh`` / ``bias``, Dense ``bias``, the sketches and the
   int8 tower's activation scales (``quant``: ``q_stem``, ``q1``, ``q_out``,
-  0-d buffers) keep their names and layouts.
+  and ``q_in`` of the int8 stem, 0-d buffers) keep their names and layouts.
 The path through the tree becomes the dotted module path, which the port's
 modules mirror.
 """

@@ -12,8 +12,14 @@ Two storage forms, as in the JAX module:
   contraction (M @ C, M @ S) the JAX module does on every call
   (mcb.py:216-220);
 - folded (``folded_vars=True``): the buffers hold the (2, d_in, f) stacks
-  themselves (``fold_count_sketch``), as the JAX serving form stores them.
-All matmuls run in full fp32 (the JAX package's Precision.HIGHEST).
+  themselves (``fold_count_sketch``), as the JAX serving form stores them;
+  ``fold_sketch_state_dict`` turns a plain state dict into this form
+  (``fold_sketch_collection``, mcb.py:114).
+``precision``: "highest" runs every matmul in full fp32 (the JAX package's
+Precision.HIGHEST, the default); "default" rounds both operands of each MCB
+matmul to bf16 and sums in fp32, which is what the TPU's Precision.DEFAULT
+computes. The fold of the sketch into the bases stays full precision
+(mcb.py:212-218).
 """
 
 from __future__ import annotations
@@ -74,19 +80,47 @@ def fold_count_sketch(m: np.ndarray, out_dim: int) -> np.ndarray:
     ])
 
 
-def _product_to_signal(re_x, im_x, re_y, im_y, mr, mi):
+PRECISIONS = ("highest", "default")
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """a @ b in fp32, or with ``precision="default"`` on bf16-rounded
+    operands: the products of two bf16 values are exact in fp32, so this is
+    the TPU's DEFAULT product (bf16 in, fp32 sums)."""
+    if precision == "default":
+        a, b = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    return a @ b
+
+
+def _product_to_signal(re_x, im_x, re_y, im_y, mr, mi, precision="highest"):
     re_p = re_x * re_y - im_x * im_y
     im_p = re_x * im_y + im_x * re_y
-    return re_p @ mr + im_p @ mi
+    return dot(re_p, mr, precision) + dot(im_p, mi, precision)
 
 
-def circular_conv_real(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+def circular_conv_real(px: torch.Tensor, py: torch.Tensor,
+                       precision: str = "highest") -> torch.Tensor:
     """Circular convolution of (..., d) signals via the real DFT bases."""
     d = px.shape[-1]
     cos_b, sin_b = (torch.from_numpy(b).to(px.device) for b in _rdft_bases(d))
     mr, mi = (torch.from_numpy(b).to(px.device) for b in _irdft_bases(d))
-    return _product_to_signal(px @ cos_b, px @ sin_b, py @ cos_b, py @ sin_b,
-                              mr, mi)
+    return _product_to_signal(dot(px, cos_b, precision), dot(px, sin_b, precision),
+                              dot(py, cos_b, precision), dot(py, sin_b, precision),
+                              mr, mi, precision)
+
+
+def fold_sketch_state_dict(state: dict) -> dict:
+    """A state dict with plain (d_in, out) ``sketch1`` / ``sketch2`` buffers
+    -> the same dict (other entries shared) with each replaced by its
+    (2, d_in, f) ``fold_count_sketch`` stack, for a model built with
+    ``mcb_folded_vars=True`` (the state-dict twin of the JAX package's
+    ``fold_sketch_collection``). Already folded stacks pass through."""
+    out = dict(state)
+    for key, v in state.items():
+        if key.rsplit(".", 1)[-1] in ("sketch1", "sketch2") and v.ndim == 2:
+            out[key] = torch.from_numpy(fold_count_sketch(
+                v.detach().cpu().numpy(), v.shape[1])).to(v.device)
+    return out
 
 
 class CompactBilinearPooling(nn.Module):
@@ -94,8 +128,12 @@ class CompactBilinearPooling(nn.Module):
 
     def __init__(self, input1_size: int, input2_size: int,
                  output_size: int = 1024, seed: int = 0,
-                 fold_sketch: bool = True, folded_vars: bool = False):
+                 fold_sketch: bool = True, folded_vars: bool = False,
+                 precision: str = "highest"):
         super().__init__()
+        if precision not in PRECISIONS:
+            raise ValueError(f"mcb precision {precision!r}: one of {PRECISIONS}")
+        self.precision = precision
         self.output_size = output_size
         self.fold_sketch = fold_sketch
         self.folded_vars = folded_vars
@@ -131,11 +169,12 @@ class CompactBilinearPooling(nn.Module):
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
         y = x if y is None else y
         x, y = x.float(), y.float()
+        p = self.precision
         if self.folded_vars or self.fold_sketch:
-            return _product_to_signal(x @ self.fold1[0], x @ self.fold1[1],
-                                      y @ self.fold2[0], y @ self.fold2[1],
-                                      self.irdft_re, self.irdft_im)
-        return circular_conv_real(x @ self.sketch1, y @ self.sketch2)
+            return _product_to_signal(dot(x, self.fold1[0], p), dot(x, self.fold1[1], p),
+                                      dot(y, self.fold2[0], p), dot(y, self.fold2[1], p),
+                                      self.irdft_re, self.irdft_im, p)
+        return circular_conv_real(dot(x, self.sketch1, p), dot(y, self.sketch2, p), p)
 
 
 def signed_sqrt(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Post-training int8 calibration for the video tower (port of
 avvad_tpu/models/quantize.py).
 
-The tower's int8 activation scales are 0-d float32 buffers (``q_stem`` on
-``ResNet18``, ``q1`` and ``q_out`` on each ``BasicBlock``), the port's form
+The tower's int8 activation scales are 0-d float32 buffers (``q_stem``, and
+``q_in`` with the int8 stem, on ``ResNet18``; ``q1`` and ``q_out`` on each
+``BasicBlock``), the port's form
 of the JAX ``quant`` collection. ``calibrate`` runs batches through the model
 with every int8 tower in "calibrate" mode on the unfused path, so the buffers
 keep the running max of |x| at each quantisation point, then restores each

@@ -28,7 +28,19 @@ blocks run as the fused kernels of ``ops/stem_fused.py`` and
 convolution exactly as a float64 convolution over the integer values. The
 fold (quantised and packed weights, folded affines) is computed once and
 kept on the trunk until a parameter, a BatchNorm statistic or a scale
-changes (``ResNet18.folded``).
+changes (``ResNet18.folded``); a forward that ``torch.export`` traces reads
+the kept fold and never computes or writes it (fake tensors have no
+storage), so a program is exported after one eager forward.
+
+``stem_int8`` (resnet.py:293-318, 362-378) quantises the raw fp32 input with
+the static ``q_in`` scale, convolves the int8 values and dequantises with
+``x_scale * w_scale`` before the same BatchNorm / ReLU / ``q_stem`` / pool
+chain (on the fused route: K3, then the eight K2). On the CPU the stem's int32
+sums are a float64 convolution; on the card an fp32 convolution rounded to
+the nearest integer, exact because every sum is an integer of magnitude at
+most 127 * 127 * 49 * C_in < 2^24 (C_in = 1 gray, 3 RGB). ``stem_s2d`` keeps the JAX option's
+parameter and runs the plain 7x7/2 convolution: the space-to-depth rewrite
+(resnet.py:245-290) is a TPU layout trick with the same result.
 """
 
 from __future__ import annotations
@@ -259,6 +271,31 @@ class _StemGray(nn.Module):
         return F.conv2d(_channels_last(x.to(self.dtype)),
                         _channels_last(k.to(self.dtype)), stride=2, padding=3)
 
+    def forward_int8(self, x_q: torch.Tensor, x_scale: torch.Tensor,
+                     channels_last: bool = False) -> torch.Tensor:
+        """W8A8 stem (resnet.py:293-318): int8 x_q (N, C, H, W) and its scale,
+        the kernel (summed when ``gray``) quantised per output channel ->
+        float32 (N, 64, H', W') = int32 sums * (x_scale * w_scale).
+        ``channels_last``: as ``forward``."""
+        k = self.weight.sum(dim=1, keepdim=True) if self.gray else self.weight
+        w_q, w_s = quant_hwio(k)
+        w = w_q.permute(3, 2, 0, 1)
+        if x_q.is_cuda:
+            xf, wf = x_q.float(), w.float()
+            if channels_last:
+                xf, wf = _channels_last(xf), _channels_last(wf)
+            # every product and partial sum is an integer below 2^24 in
+            # magnitude, so cuDNN's strided algorithms (products summed in
+            # fp32) give it exactly and the rounding only guards the order;
+            # chip_smoke.py holds this route bit for bit against float64
+            acc = F.conv2d(xf, wf, stride=2, padding=3).round_()
+        else:
+            acc = conv_exact(x_q, w, 2, 3)
+            if channels_last:
+                acc = acc.contiguous(memory_format=torch.channels_last)
+        # in place on the sums of this call: one (N, 64, 34, 34) fp32 buffer
+        return acc.mul_((x_scale * w_s).view(1, -1, 1, 1))
+
 
 def _channels_last(t: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> channels-last; for one channel the same bytes with
@@ -274,26 +311,38 @@ class ResNet18(nn.Module):
     """Gray input (N, 1, H, W), or (N, 3, H, W) with ``gray_input=False``,
     -> (N, 512) pooled features, float32. ``quant_mode`` and
     ``stages_pallas`` are plain attributes: ``calibrate`` switches them for
-    its run and restores them."""
+    its run and restores them. ``stem_int8`` (with ``quant_int8``): the W8A8
+    stem on the ``q_in`` input scale; ``stem_s2d``: the JAX option's
+    space-to-depth stem, the same 7x7/2 convolution here; the two are
+    exclusive."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  dtype: torch.dtype = torch.float32, norm_eps: float = 1e-5,
                  generator: Optional[torch.Generator] = None,
                  quant_int8: bool = False, quant_mode: str = "dynamic",
-                 stages_pallas: bool = False, gray_input: bool = True):
+                 stages_pallas: bool = False, gray_input: bool = True,
+                 stem_int8: bool = False, stem_s2d: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if quant_mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode: {quant_mode!r}")
+        if stem_int8 and stem_s2d:
+            raise ValueError("stem_int8 and stem_s2d are exclusive")
+        if stem_int8 and not quant_int8:
+            raise ValueError("stem_int8 requires quant_int8")
         self.quant_int8 = quant_int8
         self.quant_mode = quant_mode
         self.stages_pallas = stages_pallas
+        self.stem_int8 = stem_int8
+        self.stem_s2d = stem_s2d
         self.conv1 = _StemGray(dtype, generator, gray=gray_input)
         self.bn1 = nn.BatchNorm2d(64, eps=norm_eps)
         if quant_int8:
             self.register_buffer("q_stem", torch.zeros(()))
+        if stem_int8:
+            self.register_buffer("q_in", torch.zeros(()))
         self.block_names = []
         cin = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, widths)):
@@ -323,10 +372,19 @@ class ResNet18(nn.Module):
         """The fused path's constants: (a, b) of ``fold_stem`` and the 8
         ``fold_block`` specs, tile-packed weights included. Computed at the
         first call and again only after a parameter, a BatchNorm statistic
-        or a scale buffer changed."""
+        or a scale buffer changed. While a forward is traced the kept fold
+        is returned as it is (``ServingArtifact.build`` runs the model once
+        before it traces)."""
+        if torch.compiler.is_compiling():  # torch.export traces this forward
+            if self._fold is None:
+                raise RuntimeError("ResNet18.folded: run the model once before "
+                                   "tracing it, so that the fold is kept")
+            return self._fold[1]
         key = self._fold_key()
         if self._fold is None or self._fold[0] != key:
-            with torch.no_grad():
+            # ordinary tensors even under a live step's inference mode: an
+            # exported program keeps them as its constants
+            with torch.inference_mode(False), torch.no_grad():
                 a, b = fold_stem(self.bn1, self.q_stem)
                 scale, specs = static_scale(self.q_stem), []
                 for block in self.blocks():
@@ -343,14 +401,24 @@ class ResNet18(nn.Module):
                 x = block(x)
             return _at_least_fp32(x.mean(dim=(2, 3)))
         if self.stages_pallas:
-            return self._fused_int8(self.conv1(x, channels_last=True))
+            return self._fused_int8(self._stem(x, channels_last=True))
         mode = self.quant_mode
-        y = F.relu(_bn_int8(self.bn1, self.conv1(x)))
+        y = F.relu(_bn_int8(self.bn1, self._stem(x)))
         x_q, scale = act_quant(y, self.q_stem, mode)
         xs = (max_pool_i8(x_q), scale)
         for block in self.blocks():
             xs = block.forward_int8(xs, mode)
         return (xs[0].float() * xs[1]).mean(dim=(2, 3))
+
+    def _stem(self, x: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
+        """The int8 tower's stem conv: float, or with ``stem_int8`` the W8A8
+        stem on the raw fp32 input quantised by ``q_in`` (resnet.py:366-378:
+        not the model-dtype cast, whose rounding would stack under the
+        quantisation; symmetric quantisation keeps the zero padding exact)."""
+        if not self.stem_int8:
+            return self.conv1(x, channels_last=channels_last)
+        x_q, x_s = act_quant(x.float(), self.q_in, self.quant_mode)
+        return self.conv1.forward_int8(x_q, x_s, channels_last=channels_last)
 
     def _fused_int8(self, stem: torch.Tensor) -> torch.Tensor:
         """Stem conv output (channels-last) -> stem epilogue kernel (K3) -> 8

@@ -14,6 +14,9 @@ norm before it is taken over the WHOLE tensor: the batch rows couple
 through it, as in the reference. ``model.train()`` is JAX's
 ``train=True``: every BatchNorm (the frozen trunk's too) takes batch
 statistics and updates its running ones (``resnet.batch_norm``).
+``tower_stem_int8``: the int8 tower's W8A8 stem (``ResNet18.stem_int8``);
+``mcb_precision`` on AVVAD: "highest" (fp32 MCB matmuls, the default) or
+"default" (bf16 operands, fp32 sums: the TPU's Precision.DEFAULT).
 Dropout is not ported: ``dropout_rate`` > 0 raises.
 """
 
@@ -49,14 +52,15 @@ class _VideoTower(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  quant_int8: bool = False, quant_mode: str = "dynamic",
                  stages_pallas: bool = False, remat: bool = False,
-                 gray_stem: bool = True):
+                 gray_stem: bool = True, stem_int8: bool = False):
         super().__init__()
         self.chunk = chunk
         self.remat = remat
         self.gray_stem = gray_stem
         self.features = ResNet18(dtype=dtype, generator=generator,
                                  quant_int8=quant_int8, quant_mode=quant_mode,
-                                 stages_pallas=stages_pallas, gray_input=gray_stem)
+                                 stages_pallas=stages_pallas, gray_input=gray_stem,
+                                 stem_int8=stem_int8)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         b, t, h, w = video.shape
@@ -85,10 +89,11 @@ def _recompute_frozen():
 
 
 def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas,
-           remat, gray_stem):
+           remat, gray_stem, stem_int8):
     return _VideoTower(dtype=dtype, chunk=chunk, generator=g,
                        quant_int8=tower_int8, quant_mode=tower_quant_mode,
-                       stages_pallas=tower_pallas, remat=remat, gray_stem=gray_stem)
+                       stages_pallas=tower_pallas, remat=remat, gray_stem=gray_stem,
+                       stem_int8=stem_int8)
 
 
 def _no_dropout(dropout_rate: float) -> None:
@@ -180,14 +185,14 @@ class VideoVAD(nn.Module):
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
                  tower_pallas: bool = False, tower_chunk: int = 0,
                  num_video_features: int = 512, remat: bool = False,
-                 gray_stem: bool = True, dropout_rate: float = 0.0,
-                 seed: int = 0):
+                 gray_stem: bool = True, tower_stem_int8: bool = False,
+                 dropout_rate: float = 0.0, seed: int = 0):
         super().__init__()
         _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
-        self.tower = _tower(dtype, tower_chunk, g, tower_int8,
-                            tower_quant_mode, tower_pallas, remat, gray_stem)
+        self.tower = _tower(dtype, tower_chunk, g, tower_int8, tower_quant_mode,
+                            tower_pallas, remat, gray_stem, tower_stem_int8)
         self.lstm_video = LSTMStack(num_video_features, lstm_hidden_size,
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
@@ -230,7 +235,8 @@ class VideoVAD(nn.Module):
 class AVVAD(nn.Module):
     """Video tower + audio features, fused by MCB (-> signed sqrt -> L2 ->
     BatchNorm) or concatenation, -> LSTM stack -> Dense logits. ``remat``
-    and ``gray_stem``: see ``_VideoTower``."""
+    and ``gray_stem``: see ``_VideoTower``; ``mcb_precision``: see
+    ``CompactBilinearPooling``."""
 
     def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
                  lstm_layers: int = 2, use_mcb: bool = True,
@@ -241,7 +247,8 @@ class AVVAD(nn.Module):
                  tower_chunk: int = 0, mcb_folded_vars: bool = False,
                  tower_int8: bool = False, tower_quant_mode: str = "dynamic",
                  tower_pallas: bool = False, remat: bool = False,
-                 gray_stem: bool = True, dropout_rate: float = 0.0,
+                 gray_stem: bool = True, tower_stem_int8: bool = False,
+                 mcb_precision: str = "highest", dropout_rate: float = 0.0,
                  seed: int = 0):
         super().__init__()
         _no_dropout(dropout_rate)
@@ -249,12 +256,12 @@ class AVVAD(nn.Module):
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.use_mcb = use_mcb
         self.eps = eps
-        self.tower = _tower(dtype, tower_chunk, g, tower_int8,
-                            tower_quant_mode, tower_pallas, remat, gray_stem)
+        self.tower = _tower(dtype, tower_chunk, g, tower_int8, tower_quant_mode,
+                            tower_pallas, remat, gray_stem, tower_stem_int8)
         if use_mcb:
             self.mcb = CompactBilinearPooling(
                 num_audio_features, num_video_features, mcb_output_size,
-                folded_vars=mcb_folded_vars)
+                folded_vars=mcb_folded_vars, precision=mcb_precision)
             self.mcb_bn = nn.BatchNorm1d(mcb_output_size, eps=eps)
             fused = mcb_output_size
         else:

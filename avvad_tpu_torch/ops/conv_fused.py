@@ -20,9 +20,17 @@ x k chunk of 128, every chunk the shared-memory image an int8 ``wgmma``
 takes its B operand from, so that one bulk copy stages it. ``block_plan``
 picks the frames a CTA takes, the ring depth and the shared memory; the C
 entry checks the bytes against its own count.
+
+``basic_block_int8`` calls the custom op ``avvad_tpu_torch::int8_basic_block``
+(``torch.library``): the kernel on the card, the plain version on the CPU,
+and a fake implementation with the output's shape, so that ``torch.export``
+records the op in a serving program. The op reads the card's SMs and the
+plan when it runs, and packs the tiles there when it is given none.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -330,6 +338,36 @@ def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride, tiles):
     return out
 
 
+@torch.library.custom_op("avvad_tpu_torch::int8_basic_block", mutates_args=(),
+                         device_types="cpu")
+def int8_basic_block_op(x: torch.Tensor, w1: torch.Tensor, a1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor, a2: torch.Tensor,
+                        b2: torch.Tensor, wd: Optional[torch.Tensor],
+                        ad: Optional[torch.Tensor], bd: Optional[torch.Tensor],
+                        res_scale: Optional[torch.Tensor], stride: int,
+                        t1: Optional[torch.Tensor], t2: Optional[torch.Tensor],
+                        td: Optional[torch.Tensor]) -> torch.Tensor:
+    """One fused int8 BasicBlock as an op: on the CPU the plain version (the
+    CUDA implementation is registered below); t1, t2, td: the tiles."""
+    return basic_block_int8_plain(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale,
+                                  stride=stride)
+
+
+@int8_basic_block_op.register_kernel("cuda")
+def _int8_basic_block_cuda(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride,
+                           t1, t2, td):
+    tiles = None if t1 is None else (t1, t2, td)
+    return _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride, tiles)
+
+
+@int8_basic_block_op.register_fake
+def _int8_basic_block_fake(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride,
+                           t1, t2, td):
+    n, h, w, _ = x.shape
+    return x.new_empty(n, conv_out(h, stride), conv_out(w, stride), w1.shape[0],
+                       dtype=torch.int8)
+
+
 def basic_block_int8(x, w1, a1, b1, w2, a2, b2, wd=None, ad=None, bd=None,
                      res_scale=None, *, stride: int = 1,
                      tiles: tuple | None = None) -> torch.Tensor:
@@ -338,15 +376,15 @@ def basic_block_int8(x, w1, a1, b1, w2, a2, b2, wd=None, ad=None, bd=None,
     ``res_scale`` = x_scale / out_scale; downsample: ``wd`` = ``pack_conv1``
     with its folded ``ad``, ``bd``. ``tiles``: ``pack_block_tiles(w1, w2,
     wd)`` where the caller keeps it (``fold_block`` does), else packed
-    here at every call. A CUDA ``x`` launches the kernel, or raises where
-    ``block_plan`` refuses the shape or the launch fails; a CPU ``x`` runs
-    the plain version."""
+    by the op at every call. A CUDA ``x`` launches the kernel, or raises
+    where ``block_plan`` refuses the shape or the launch fails; a CPU ``x``
+    runs the plain version (both through ``int8_basic_block_op``)."""
     _check(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride)
-    if x.is_cuda:
-        return _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride,
-                       tiles)
-    return basic_block_int8_plain(x, w1, a1, b1, w2, a2, b2, wd, ad, bd,
-                                  res_scale, stride=stride)
+    if res_scale is not None:
+        res_scale = torch.as_tensor(res_scale, dtype=torch.float32, device=x.device)
+    t1, t2, td = (None, None, None) if tiles is None else tiles
+    return int8_basic_block_op(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale,
+                               stride, t1, t2, td)
 
 
 def _block_args(spec: dict) -> tuple:

@@ -40,6 +40,15 @@ outside, as
 JAX's custom VJP computes it. Layouts are batch-major (B, T, ...)
 throughout; the JAX kernels take time-major arrays.
 
+The inference route is the custom op ``avvad_tpu_torch::lstm_infer``
+(``torch.library``): its CUDA implementation picks the variant from
+``state_quant`` by ``infer_variant`` when it runs and launches the kernel;
+its CPU implementation is ``lstm_layer_plain``; its fake implementation
+gives the output's shape, so ``torch.export`` records the op in a serving
+program (``export.ServingArtifact``) as the JAX artifact records its Mosaic
+custom call. The training kernels (K1d, K1e) and the probe are no custom
+ops: training is not exported, and the probe is a measuring tool.
+
 ``lstm_probe`` is the measuring tool's kernel (``tools/lstm_probe.py``):
 the recurrence in four modes that take a step's cost apart ("full",
 "h_bf16", "gates_only", "matmul_only"; ``PROBE_MODES``), as compile-time
@@ -48,6 +57,8 @@ variants of the inference kernel that serving runs at the shape
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -651,6 +662,30 @@ class LSTMRecurrence(torch.autograd.Function):
         return d_gates, dw_hh, dh0, dc0
 
 
+@torch.library.custom_op("avvad_tpu_torch::lstm_infer", mutates_args=(),
+                         device_types="cpu")
+def lstm_infer(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: Optional[torch.Tensor],
+               c0: Optional[torch.Tensor], state_quant: str) -> torch.Tensor:
+    """One layer's inference recurrence as an op: on the CPU the plain
+    version (the CUDA implementation is registered below)."""
+    return lstm_layer_plain(x_proj, w_hh, h0, c0, state_quant)
+
+
+@lstm_infer.register_kernel("cuda")
+def _lstm_infer_cuda(x_proj, w_hh, h0, c0, state_quant):
+    # the route is read here, when the op runs: the card's SMs and the plan,
+    # never while a program is traced
+    sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
+    return _launch(x_proj, w_hh, h0, c0, infer_variant(
+        state_quant, x_proj.shape[0], x_proj.shape[2] // 4, sms))
+
+
+@lstm_infer.register_fake
+def _lstm_infer_fake(x_proj, w_hh, h0, c0, state_quant):
+    b, t, h4 = x_proj.shape
+    return x_proj.new_empty(b, t, h4 // 4, dtype=torch.float32)
+
+
 def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                      h0: torch.Tensor | None = None,
                      c0: torch.Tensor | None = None,
@@ -663,12 +698,12 @@ def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
     per-column int8). Under autograd (grad enabled, an input requires it)
     "none" runs ``LSTMRecurrence`` (K1d forward, K1e backward) and the
     quantised variants raise NotImplementedError, as in JAX; otherwise
-    the inference kernel runs: ``lstm_f32h_persist``, ``lstm_bf16h_persist``
-    or ``lstm_int8_persist``, one launch a layer, where ``persistent_plan``
-    fits the shape on the card (``infer_variant``), else the per-step
-    ``lstm_f32h``, ``lstm_bf16h`` or ``lstm_int8``. A CUDA ``x_proj``
-    launches the kernels (or raises); a CPU ``x_proj`` runs their plain
-    versions."""
+    the op ``lstm_infer`` runs the inference kernel: ``lstm_f32h_persist``,
+    ``lstm_bf16h_persist`` or ``lstm_int8_persist``, one launch a layer,
+    where ``persistent_plan`` fits the shape on the card (``infer_variant``),
+    else the per-step ``lstm_f32h``, ``lstm_bf16h`` or ``lstm_int8``. A CUDA
+    ``x_proj`` launches the kernels (or raises); a CPU ``x_proj`` runs their
+    plain versions."""
     _check_args(x_proj, w_hh, h0, c0, state_quant)
     if torch.is_grad_enabled() and any(
             a is not None and a.requires_grad for a in (x_proj, w_hh, h0, c0)):
@@ -678,8 +713,4 @@ def lstm_layer_fused(x_proj: torch.Tensor, w_hh: torch.Tensor,
                 "state_quant (or use the default Pallas kernel) for training")
         h0, c0 = _initial_state(x_proj, h0, c0)
         return LSTMRecurrence.apply(x_proj, w_hh, h0, c0)
-    if x_proj.is_cuda:
-        sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
-        return _launch(x_proj, w_hh, h0, c0, infer_variant(
-            state_quant, x_proj.shape[0], x_proj.shape[2] // 4, sms))
-    return lstm_layer_plain(x_proj, w_hh, h0, c0, state_quant)
+    return lstm_infer(x_proj, w_hh, h0, c0, state_quant)

@@ -10,6 +10,11 @@ tower's stem conv writes, and ``stem_epilogue_pool`` for NCHW input. On a
 CPU tensor it runs ``stem_epilogue_plain``, the same float32 operations in
 plain PyTorch. The JAX package leaves its kernel unwired; the port runs it
 as the stem conv's epilogue on the static-int8 tower.
+
+Both routes are one custom op, ``avvad_tpu_torch::stem_epilogue_pool_quant``
+(``torch.library``), whose CUDA implementation picks the kernel by the
+layout of the tensor it is given when it runs, and whose fake
+implementation gives the output's shape for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -132,6 +137,24 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("avvad_tpu_torch::stem_epilogue_pool_quant", mutates_args=(),
+                         device_types="cpu")
+def stem_epilogue_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The stem epilogue as an op: on the CPU the plain version (the CUDA
+    implementation is registered below)."""
+    return stem_epilogue_plain(x, a, b)
+
+
+@stem_epilogue_op.register_kernel("cuda")
+def _stem_epilogue_cuda(x, a, b):
+    return _launch(x, a, b)
+
+
+@stem_epilogue_op.register_fake
+def _stem_epilogue_fake(x, a, b):
+    return x.new_empty(x.shape[0], HW_OUT, HW_OUT, x.shape[1], dtype=torch.int8)
+
+
 def stem_epilogue_pool_quant(x: torch.Tensor, a: torch.Tensor,
                              b: torch.Tensor) -> torch.Tensor:
     """Stem conv output x (N, C, 34, 34), NCHW or channels-last, float32 or
@@ -139,8 +162,7 @@ def stem_epilogue_pool_quant(x: torch.Tensor, a: torch.Tensor,
     q = clip(round(relu(a * x + b)), 0, 127), then the 3x3/2 max pool with
     its padding excluded. A CUDA ``x`` launches the kernel of its layout,
     ``stem_epilogue_pool_nhwc`` for channels-last and ``stem_epilogue_pool``
-    for NCHW (or raises); a CPU ``x`` runs the plain version."""
+    for NCHW (or raises); a CPU ``x`` runs the plain version (both through
+    ``stem_epilogue_op``)."""
     _check(x, a, b)
-    if x.is_cuda:
-        return _launch(x, a, b)
-    return stem_epilogue_plain(x, a, b)
+    return stem_epilogue_op(x, a, b)

@@ -24,7 +24,15 @@ its Pallas kernel for ``lax.scan`` there too); with ``tower_pallas`` the
 static-int8 tower of an ``AVVAD`` or a ``VideoVAD`` runs on its
 hand-written kernels.
 
-Not ported yet: the ``mesh=`` and ``step_override=`` options.
+The device step of each class is a method of its own that takes and
+returns tensors only (``_device_step`` of the single streamers,
+``_tick_body`` of the multi-stream servers), which ``export`` traces into a
+serving artifact. A multi-stream server built with ``step_override=`` (a
+callable of its step's signature, e.g. an artifact's tick:
+``export.load_multistream_server``) runs that instead, and needs only
+``lstm_hidden_size`` and ``lstm_layers`` of ``model``.
+
+Not ported yet: the ``mesh=`` option (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -182,16 +190,22 @@ class StreamingVAD:
         self._peak = self.fixed_peak or 0.0
         self._carries = _zero_carries(self.model, 1, self._dev)
 
+    def _device_step(self, frames: torch.Tensor, peak: torch.Tensor, carries: list):
+        """frames (block, nfft) raw sample windows, the 0-d running peak and
+        the per-layer carries -> ((block,) probabilities, new carries)."""
+        feats = _log_power_feats(frames, peak, self._cos, self._sin, self.cfg.eps,
+                                 self._mean, self._std)[None]  # (1, block, F)
+        logits, new_carries = self.model.streaming_head(feats, carries)
+        return torch.sigmoid(logits[0, :, 0]), new_carries
+
     @torch.inference_mode()
     def _step(self, frames: np.ndarray) -> np.ndarray:
         """One (block, nfft) block of raw sample windows, normalised by the
         running peak -> (block,) probabilities; advances the carries."""
-        feats = _log_power_feats(_upload(frames, self._dev),
-                                 _upload(np.float32(self._peak), self._dev),
-                                 self._cos, self._sin, self.cfg.eps,
-                                 self._mean, self._std)[None]  # (1, block, F)
-        logits, self._carries = self.model.streaming_head(feats, self._carries)
-        return torch.sigmoid(logits[0, :, 0]).cpu().numpy()
+        probs, self._carries = self._device_step(
+            _upload(frames, self._dev), _upload(np.float32(self._peak), self._dev),
+            self._carries)
+        return probs.cpu().numpy()
 
     def feed(self, pcm: np.ndarray) -> np.ndarray:
         """Push a chunk of samples; returns probabilities of newly completed
@@ -241,14 +255,27 @@ class _MultiStreamBase:
     the two-deep pipelined tick."""
 
     def _init_streams(self, model, n_streams: int, block_frames: int,
-                      max_backlog_blocks: int, device) -> None:
-        self._dev, self.model = _place(model, device)
+                      max_backlog_blocks: int, device, step_override) -> None:
+        """``step_override``: run it as the step, with ``model`` only the
+        facts the server reads (``lstm_hidden_size``, ``lstm_layers``),
+        neither moved nor switched to eval mode."""
+        if step_override is None:
+            self._dev, self.model = _place(model, device)
+        else:
+            self._dev, self.model = resolve_device(device), model
+            self._step = step_override
         self.n = n_streams
         self.block_frames = block_frames
         self.max_backlog_blocks = max_backlog_blocks
         self._pending_tick = self._raw_tick = None
         # downloads of pending results run beside the next tick's compute
         self._side = torch.cuda.Stream(self._dev) if self._dev.type == "cuda" else None
+
+    def _step(self, *args):
+        """The device step on tensors -> ((N, block) probabilities, new
+        carries), under inference mode (``_tick_body`` untraced)."""
+        with torch.inference_mode():
+            return self._tick_body(*args)
 
     @torch.inference_mode()
     def _clear_carry_row(self, stream_idx: int) -> None:
@@ -429,7 +456,9 @@ class MultiStreamVAD(_MultiStreamBase):
     ship raw int16 PCM, half the float span's payload, exact for 16-bit
     sources; feed() then takes np.int16 samples. native: the samples buffer
     in the C++ hub (built at first use; raises if it cannot be built);
-    False takes the hub's numpy route, which assembles the same blocks."""
+    False takes the hub's numpy route, which assembles the same blocks.
+    step_override: a callable ``(frames, peaks, active, carries) ->
+    (probs, new carries)`` run instead of the model's step."""
 
     def __init__(self, model: AudioVAD, n_streams: int,
                  norm_stats: Optional[dict] = None,
@@ -437,9 +466,9 @@ class MultiStreamVAD(_MultiStreamBase):
                  max_backlog_blocks: int = 32, span_wire: bool = False,
                  hop_dft: bool = False, audio_int16: bool = False,
                  native: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, step_override=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device)
+                           device, step_override)
         self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
                          native)
         self.reset()
@@ -449,8 +478,7 @@ class MultiStreamVAD(_MultiStreamBase):
         self._carries = _zero_carries(self.model, self.n, self._dev)
         self._cancel_all_pending()
 
-    @torch.inference_mode()
-    def _step(self, frames, peaks, active, carries):
+    def _tick_body(self, frames, peaks, active, carries):
         feats = self._audio_feats(frames, peaks)
         logits, new_carries = self.model.streaming_head(feats, carries)
         return (torch.sigmoid(logits[..., 0]),
@@ -536,16 +564,22 @@ class StreamingAVVAD:
         self._peak = self.fixed_peak or 0.0
         self._carries = _zero_carries(self.model, 1, self._dev)
 
+    def _device_step(self, frames: torch.Tensor, video: torch.Tensor,
+                     peak: torch.Tensor, carries: list):
+        """frames (block, nfft), wire lip frames (block, 67, 67), the 0-d
+        running peak and the carries -> ((block,) probabilities, new carries)."""
+        feats = _log_power_feats(frames, peak, self._cos, self._sin, self.cfg.eps,
+                                 self._a_mean, self._a_std)[None]
+        v = _normalize_video(video[None], self._v_mean, self._v_std, self.cfg.eps)
+        logits, new_carries = self.model.streaming_head(feats, v, carries)
+        return torch.sigmoid(logits[0, :, 0]), new_carries
+
     @torch.inference_mode()
     def _step(self, frames: np.ndarray, video: np.ndarray) -> np.ndarray:
-        feats = _log_power_feats(_upload(frames, self._dev),
-                                 _upload(np.float32(self._peak), self._dev),
-                                 self._cos, self._sin, self.cfg.eps,
-                                 self._a_mean, self._a_std)[None]
-        v = _normalize_video(_upload(video, self._dev)[None], self._v_mean,
-                             self._v_std, self.cfg.eps)
-        logits, self._carries = self.model.streaming_head(feats, v, self._carries)
-        return torch.sigmoid(logits[0, :, 0]).cpu().numpy()
+        probs, self._carries = self._device_step(
+            _upload(frames, self._dev), _upload(video, self._dev),
+            _upload(np.float32(self._peak), self._dev), self._carries)
+        return probs.cpu().numpy()
 
     def feed(self, pcm: np.ndarray, video_frames: np.ndarray) -> np.ndarray:
         """Push synchronised chunks; returns probs of completed frames."""
@@ -674,7 +708,10 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
     schedule, the tower runs on the uniques, and features are gathered
     onto the 62.5 fps timeline on the device. span_wire / hop_dft /
     audio_int16 / native: see MultiStreamVAD. video_uint8: lip frames
-    travel as uint8 and are dequantised on the device."""
+    travel as uint8 and are dequantised on the device. step_override: a
+    callable ``(frames, video, vidx, peaks, active, carries) -> (probs, new
+    carries)`` run instead of the model's step (vidx None without
+    ``video_fps``)."""
 
     def __init__(self, model: AVVAD, n_streams: int,
                  norm_stats: Optional[dict] = None,
@@ -683,9 +720,9 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
                  span_wire: bool = False, hop_dft: bool = False,
                  video_fps: Optional[float] = None, audio_int16: bool = False,
                  native: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, step_override=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device)
+                           device, step_override)
         self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
                          native)
         self.video_uint8 = video_uint8
@@ -704,8 +741,7 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
         self._carries = _zero_carries(self.model, self.n, self._dev)
         self._cancel_all_pending()
 
-    @torch.inference_mode()
-    def _step(self, frames, video, vidx, peaks, active, carries):
+    def _tick_body(self, frames, video, vidx, peaks, active, carries):
         """video (N, bf, 67, 67), or the block's unique
         (N, src_max, 67, 67) camera-rate frames with their per-stream
         gather schedule vidx (N, bf) (None otherwise)."""
@@ -810,12 +846,18 @@ class StreamingVideoVAD:
         self._vframes = np.zeros((0, 67, 67), dtype=self._vdtype)
         self._carries = _zero_carries(self.model, 1, self._dev)
 
+    def _device_step(self, video: torch.Tensor, carries: list):
+        """Wire lip frames (block, 67, 67) and the carries -> ((block,)
+        probabilities, new carries)."""
+        v = _normalize_video(video[None], self._v_mean, self._v_std, self._eps)
+        logits, new_carries = self.model.streaming_head(v, carries)
+        return torch.sigmoid(logits[0, :, 0]), new_carries
+
     @torch.inference_mode()
     def _step(self, video: np.ndarray) -> np.ndarray:
-        v = _normalize_video(_upload(video, self._dev)[None], self._v_mean,
-                             self._v_std, self._eps)
-        logits, self._carries = self.model.streaming_head(v, self._carries)
-        return torch.sigmoid(logits[0, :, 0]).cpu().numpy()
+        probs, self._carries = self._device_step(_upload(video, self._dev),
+                                                 self._carries)
+        return probs.cpu().numpy()
 
     def feed(self, video_frames: np.ndarray) -> np.ndarray:
         """Push lip frames; returns probabilities of completed blocks."""
@@ -849,16 +891,17 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
     are dequantised on the device. With the static-int8 tower on its fused
     kernels (``tower_int8``, ``tower_quant_mode="static"``,
     ``tower_pallas``) a tick runs the channels-last K3 once and K2 eight
-    times on its unique frames. The JAX streamer's ``mesh=`` and
-    ``step_override=`` are not ported."""
+    times on its unique frames. step_override: a callable ``(video, vidx,
+    active, carries) -> (probs, new carries)`` run instead of the model's
+    step. The JAX streamer's ``mesh=`` is not ported."""
 
     def __init__(self, model: VideoVAD, n_streams: int,
                  norm_stats: Optional[dict] = None, block_frames: int = 16,
                  max_backlog_blocks: int = 32, video_uint8: bool = False,
                  video_fps: Optional[float] = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, step_override=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device)
+                           device, step_override)
         self.video_uint8 = video_uint8
         self._vdtype = np.uint8 if video_uint8 else np.float32
         self._v_mean = _norm_stat(norm_stats, "video_mean", self._dev)
@@ -876,8 +919,7 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
         self._carries = _zero_carries(self.model, self.n, self._dev)
         self._cancel_all_pending()
 
-    @torch.inference_mode()
-    def _step(self, video, vidx, active, carries):
+    def _tick_body(self, video, vidx, active, carries):
         """video (N, bf, 67, 67), or the block's unique (N, src_max, 67, 67)
         camera-rate frames with their per-stream gather schedule vidx
         (N, bf) (None otherwise)."""

@@ -47,6 +47,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    frames (conv and K3 of each, timed in turns; the conv kernels of each
    under torch.profiler); and the int8 tower's features against the fp32
    float tower's on the same frames;
+6a. the serving artifacts and the serving options: the int8-tower
+   step (none, int8) exported with torch.export (the kernels as
+   torch.library custom ops), saved, loaded and replayed: export s, .pt2
+   MB, load s, the replay's launches (K1 2, K3 1, K2 8, nothing else), the
+   replay bit for bit against the live step, both timed in turns; the AV
+   server (int8 tower, span int16 hop_dft, 30 fps uint8) exported and
+   rebuilt by load_multistream_server, TICKS ticks of the streaming data,
+   K3 1 and K2 8 a tick of the rebuilt server, every stream within 1e-6 of
+   the live server, tick ms of both; the int8 stem (tower_stem_int8) at
+   the serving shape: its card route (fp32 conv, rounded) bit for bit
+   against the float64 route on every frame, then K3 and the 8 K2 on its
+   output bit for bit against their plain versions, the stem alone against
+   the bf16 float stem, and its serving step with the stage split; MCB at
+   "default" against "highest" on the step for none (probabilities within
+   1e-4, the JAX bench's configuration) and int8 (printed), each timed
+   with its stage split;
 7. the training kernels against their plain versions: K1d (forward with
    residuals), K1e (reverse-time backward), and the four gradients of the
    autograd Function that joins them. At the training shape (B=16, T=512,
@@ -178,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -305,6 +322,14 @@ SOLO_TOL = {"audio": 1e-5, "av": 5e-4, "video": 1e-2, "video_fp32": 1e-5}
 # same shapes on the same card
 PIPE_TOL = 1e-6
 BUILD = Path(__file__).resolve().parent / "build"
+# the serving artifacts this run exports (deleted at the end of their phase)
+ARTIFACTS = BUILD / "artifacts"
+# MCB at "default" (bf16 operands) against "highest" on the serving step's
+# probabilities with state_quant "none": the JAX bench measured 2.3e-6 at
+# its serving configuration (bench.py:383-384). With "int8" a relative
+# change of about 1e-3 in the fused features flips int8 roundings of h, as
+# KERNEL_TOL's int8 entry says: 3.4e-4 on an H100 80GB HBM3 (700 W)
+MCB_DEFAULT_TOL = 1e-4
 # the server phase: blocks a stream may buffer, since every client sends its
 # whole stream (TICKS blocks) as fast as the socket takes it
 SERVER_BACKLOG = TICKS + 8
@@ -871,6 +896,268 @@ def stem_routes(trunk, video) -> None:
           f"{ {k: [round(t, 3) for t in v] for k, v in ms.items()} })")
     print(json.dumps({"stem_routes_ms": best, "profiled_conv_split_ms": transforms,
                       "profiled_conv_kernels": kernels}))
+
+
+def host_ms(fn, *args) -> float:
+    """Host ms of fn(*args) to the end of its device work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def expect_launches(counts: dict, expect: dict, label: str) -> None:
+    """The launch counters equal ``expect``, every other one 0."""
+    want = {**dict.fromkeys(counts, 0), **expect}
+    if counts != want:
+        raise RuntimeError(f"{label}: launch counts {counts}, expected {want}")
+
+
+def serving_artifact(fn, wave, video, sq: str, rows) -> None:
+    """The serving step exported, saved, loaded and replayed: export s,
+    .pt2 MB, load s, the replay's launches (K1 2, K3 1, K2 8, nothing
+    else), the replay against the live step bit for bit, and both timed in
+    turns (live, replay, replay, live; best of each)."""
+    from avvad_tpu_torch.export import ServingArtifact
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    label = f"artifact/int8_tower/{sq}"
+    live = fn(wave, video)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art = ServingArtifact.build({"b64": (fn, (wave, video))},
+                                meta={"modality": "av", "lstm_state_quant": sq})
+    export_s = time.perf_counter() - t0
+    path = ARTIFACTS / f"serving_{sq}.avvadx"
+    art.save(str(path))
+    blob_mb = zipfile.ZipFile(path).getinfo("b64.pt2").file_size / 2**20
+    t0 = time.perf_counter()
+    loaded = ServingArtifact.load(str(path))
+    load_s = time.perf_counter() - t0
+    if set(loaded.meta["custom_ops"]["b64"]) != {
+            f"avvad_tpu_torch.{op}.default"
+            for op in ("lstm_infer", "int8_basic_block", "stem_epilogue_pool_quant")}:
+        raise RuntimeError(f"{label}: custom ops {loaded.meta['custom_ops']}")
+    loaded.call("b64", wave, video)  # the first call unlifts the program
+    reset_counts()
+    got = loaded.call("b64", wave, video)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    variant = next(iter(serving_launches(sq)))
+    expect_launches(counts, {**serving_launches(sq), conv_fused.KERNEL_NAME: 8,
+                             stem_fused.NHWC_KERNEL_NAME: 1}, label)
+    rows[variant]["launches"] = counts[variant]
+    rows["k2"]["launches"] = counts[conv_fused.KERNEL_NAME]
+    rows["k3_nhwc"]["launches"] = counts[stem_fused.NHWC_KERNEL_NAME]
+    check_probs(got, label)
+    diff = (got - live).abs().max().item()
+    if not torch.equal(got, live):
+        raise RuntimeError(f"{label}: the replay differs from the live step by {diff}")
+    ms = {"live": [], "replay": []}
+    for route in ("live", "replay", "replay", "live"):
+        step = fn if route == "live" else (lambda w, v: loaded.call("b64", w, v))
+        ms[route] += [host_ms(step, wave, video) for _ in range(2)]
+    out = {"artifact": label, "export_s": export_s, "pt2_mb": blob_mb, "load_s": load_s,
+           "launches": {k: v for k, v in counts.items() if v},
+           "replay_equals_live": True, "live_ms_best": min(ms["live"]),
+           "replay_ms_best": min(ms["replay"]), "ms": ms,
+           "custom_ops": loaded.meta["custom_ops"]["b64"],
+           "torch_version": loaded.meta["torch_version"]}
+    print(f"{label}: export {export_s:.1f} s, .pt2 {blob_mb:.1f} MB, load {load_s:.1f} s; "
+          f"replay launches {out['launches']}, bit-equal to the live step; live "
+          f"{out['live_ms_best']:.2f} ms/step, replay {out['replay_ms_best']:.2f}")
+    print(json.dumps(out))
+
+
+def server_artifact(int8_model) -> None:
+    """The AV server on the static-int8 tower (span int16 hop_dft, 30 fps
+    uint8) exported and rebuilt by load_multistream_server: TICKS ticks of
+    the streaming data fed to both, the rebuilt server's launches each
+    tick (K3 1, K2 8, nothing else), every stream against the live
+    server's, and the tick ms of both (the order alternating by tick)."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.export import export_multistream_server, load_multistream_server
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    label = "artifact/av_server/int8_tower"
+    pcm, video, _ = stream_data()
+    live = serve.MultiStreamAVVAD(int8_model, STREAMS, block_frames=BLOCK, video_fps=30.0,
+                                  video_uint8=True, span_wire=True, hop_dft=True,
+                                  audio_int16=True)
+    path = ARTIFACTS / "av_server.avvadx"
+    t0 = time.perf_counter()
+    export_multistream_server(live, str(path))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_multistream_server(str(path))
+    load_s = time.perf_counter() - t0
+    loaded.warmup()
+    live.warmup()
+    ms = {"live": [], "loaded": []}
+    worst = 0.0
+    for k in range(TICKS):
+        for srv in (live, loaded):
+            feed_tick(srv, pcm[k], video[k], False)
+        out = {}
+        for route in (("live", "loaded") if k % 2 else ("loaded", "live")):
+            srv = loaded if route == "loaded" else live
+            reset_counts()
+            t0 = time.perf_counter()
+            out[route] = srv.tick()
+            ms[route].append(1e3 * (time.perf_counter() - t0))
+            if route == "loaded":
+                expect_launches(launch_counts(), {conv_fused.KERNEL_NAME: 8,
+                                                  stem_fused.NHWC_KERNEL_NAME: 1},
+                                f"{label} tick {k}")
+        check_tick(out["loaded"], f"{label} tick {k}")
+        worst = max(worst, max(float(np.abs(out["loaded"][i] - out["live"][i]).max())
+                               for i in range(STREAMS)))
+    if worst > PIPE_TOL:
+        raise RuntimeError(f"{label}: the rebuilt server differs from the live one by {worst}")
+    summary = {"artifact": label, "export_s": export_s, "load_s": load_s,
+               "pt2_mb": zipfile.ZipFile(path).getinfo("tick.pt2").file_size / 2**20,
+               "ticks": TICKS, "k2_launches_per_tick": 8, "k3_launches_per_tick": 1,
+               "max_abs_diff_vs_live": worst,
+               **{f"{r}_tick_ms_{f.__name__}": float(f(v)) for r, v in ms.items()
+                  for f in (np.min, np.median)}}
+    print(f"{label}: rebuilt in {load_s:.1f} s (export {export_s:.1f} s); {TICKS} ticks, "
+          f"K3 1 and K2 8 a tick, every stream within {worst:.2e} of the live server "
+          f"(tol {PIPE_TOL:g}); tick ms best / median: rebuilt "
+          f"{summary['loaded_tick_ms_min']:.2f} / {summary['loaded_tick_ms_median']:.2f}, "
+          f"live {summary['live_tick_ms_min']:.2f} / {summary['live_tick_ms_median']:.2f}")
+    print(json.dumps(summary))
+
+
+def int8_stem_phase(int8_model, wave, video, idx) -> None:
+    """The int8 stem at the serving shape: a copy of the int8-tower model
+    with ``tower_stem_int8`` calibrated as int8_path calibrates; its stem's
+    card route (fp32 conv, rounded) bit for bit against the float64 route
+    on every frame of the step, then K3 on its output and the 8 K2 after it
+    against their plain versions (bit for bit); the stem alone against the
+    bf16 float stem in turns; the serving step with its stage split."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD, calibrate
+    from avvad_tpu_torch.models.resnet import act_quant
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+    from avvad_tpu_torch.ops.conv_fused import conv_exact
+
+    model = AVVAD(y_dim=1, lstm_hidden_size=H, lstm_layers=2, use_mcb=True,
+                  mcb_output_size=1024, dtype=torch.bfloat16, use_kernel_lstm=True,
+                  lstm_state_quant="int8", tower_int8=True, tower_quant_mode="static",
+                  tower_pallas=True, tower_stem_int8=True, seed=0).cuda()
+    model.load_state_dict(int8_model.state_dict(), strict=False)  # q_in is new
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.split(".")[-1] in ("q_in", "q_stem", "q1", "q_out"):
+                buf.zero_()
+    calibrate(model, [(torch.zeros(2, T, 513, device="cuda"), video[:2])],
+              video_frame_indices=torch.as_tensor(idx, device="cuda"))
+    trunk = model.tower.features
+    frames = video.reshape(-1, 1, 67, 67)
+    with torch.inference_mode():
+        x_q, x_s = act_quant(frames, trunk.q_in, "static")
+        stem = trunk.conv1.forward_int8(x_q, x_s, channels_last=True)
+        if not stem.is_contiguous(memory_format=torch.channels_last):
+            raise RuntimeError("int8 stem: the card route's output is not channels-last")
+        k = trunk.conv1.weight.sum(dim=1, keepdim=True)
+        w_q, w_s = conv_fused.quant_hwio(k)
+        flips = 0
+        for i in range(0, frames.shape[0], 2048):
+            ref = conv_exact(x_q[i:i + 2048], w_q.permute(3, 2, 0, 1), 2, 3) * \
+                (x_s * w_s).view(1, -1, 1, 1)
+            flips += int((stem[i:i + 2048] != ref).sum())
+        if flips:
+            raise RuntimeError(f"int8 stem: {flips} outputs differ from the float64 route")
+        a, b, specs = trunk.folded()
+        reset_counts()
+        pooled = stem_fused.stem_epilogue_pool_quant(stem, a, b)
+        feats = conv_fused.trunk_features_int8(pooled, specs)
+        torch.cuda.synchronize()
+        expect_launches(launch_counts(), {conv_fused.KERNEL_NAME: 8,
+                                          stem_fused.NHWC_KERNEL_NAME: 1}, "int8 stem chain")
+        with plain_k2_k3():
+            pooled_ref = stem_fused.stem_epilogue_plain(stem, a, b)
+            feats_ref = conv_fused.trunk_features_int8(pooled_ref, specs)
+        if not (torch.equal(pooled, pooled_ref) and torch.equal(feats, feats_ref)):
+            raise RuntimeError("int8 stem: K3 / K2 differ from their plain versions")
+        float_stem = int8_model.tower.features
+        ms = {"int8_stem": [], "bf16_stem": []}
+        for order in (("int8_stem", "bf16_stem"), ("bf16_stem", "int8_stem")):
+            for route in order:
+                t = trunk if route == "int8_stem" else float_stem
+                ms[route].append(cuda_ms(lambda: t._stem(frames, channels_last=True), 3))
+    print(f"int8 stem on {frames.shape[0]} frames: the card route equals the float64 route "
+          f"on all {stem.numel()} outputs; K3 and the 8 K2 on its output equal their plain "
+          f"versions; stem conv alone: int8 {min(ms['int8_stem']):.3f} ms (quantise, fp32 "
+          f"conv, round, dequantise), bf16 float {min(ms['bf16_stem']):.3f} ms")
+    print(json.dumps({"int8_stem_ms": {k: min(v) for k, v in ms.items()}, "reps": ms,
+                      "q_in": trunk.q_in.item(), "bit_exact_outputs": stem.numel()}))
+    fn = make_waveform_serving_fn(model, t_frames=T, video_frame_indices=idx)
+    reset_counts()
+    probs = fn(wave, video)
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {**serving_launches("int8"), conv_fused.KERNEL_NAME: 8,
+                                      stem_fused.NHWC_KERNEL_NAME: 1}, "int8 stem step")
+    check_probs(probs, "int8 stem step")
+    prof = time_step(fn, model, wave, video, "int8_tower_stem_int8/int8",
+                     "the int8 stem, K3 + 8 x K2, K1b x 2")
+    split = prof["stem_split_ms"]
+    print(f"int8_tower_stem_int8/int8 stem in the profiled step: conv {split['conv']:.3f} ms, "
+          f"transposes {split['transposes']:.3f} ms, K3 {split['k3']:.3f} ms")
+    del model, fn
+
+
+def mcb_precision_phase(int8_model, wave, video, idx) -> None:
+    """MCB at "default" (bf16 operands, fp32 sums) against "highest" on the
+    int8-tower serving step: with state_quant "none", the JAX bench's
+    configuration (bench.py:412), probabilities within MCB_DEFAULT_TOL;
+    with "int8" the difference is printed, not held (the int8 state's
+    rounding flips amplify it); both timed with their stage split, in turns."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+
+    fn = make_waveform_serving_fn(int8_model, t_frames=T, video_frame_indices=idx)
+    mcb = int8_model.mcb
+    err = {}
+    try:
+        for sq in INT8_STATE_QUANTS:
+            int8_model.set_lstm_state_quant(sq)
+            probs = {}
+            for prec in ("highest", "default", "default", "highest"):
+                mcb.precision = prec
+                probs[prec] = fn(wave, video)
+                check_probs(probs[prec], f"mcb {prec}")
+                time_step(fn, int8_model, wave, video, f"int8_tower/{sq}/mcb_{prec}",
+                          f"MCB precision {prec}")
+            err[sq] = (probs["default"] - probs["highest"]).abs().max().item()
+    finally:
+        mcb.precision = "highest"
+    print(f"MCB precision default against highest on the int8-tower step: max |probs diff| "
+          f"{err['none']:.2e} with state_quant none (tol {MCB_DEFAULT_TOL:g}), "
+          f"{err['int8']:.2e} with int8 (not held)")
+    print(json.dumps({"mcb_default_vs_highest_max_abs_diff": err}))
+    if err["none"] > MCB_DEFAULT_TOL:
+        raise RuntimeError(f"mcb default against highest: {err['none']}")
+
+
+def artifact_phase(int8_model, rows) -> None:
+    """The serving artifacts and the serving options."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    wave, video, idx = serving_inputs()
+    fn = make_waveform_serving_fn(int8_model, t_frames=T, video_frame_indices=idx)
+    for sq in INT8_STATE_QUANTS:
+        int8_model.set_lstm_state_quant(sq)
+        serving_artifact(fn, wave, video, sq, rows)
+    torch.cuda.empty_cache()
+    server_artifact(int8_model)
+    torch.cuda.empty_cache()
+    int8_stem_phase(int8_model, wave, video, idx)
+    torch.cuda.empty_cache()
+    mcb_precision_phase(int8_model, wave, video, idx)
+    for path in ARTIFACTS.glob("*.avvadx"):
+        path.unlink()
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -2567,6 +2854,8 @@ def main() -> None:
     float_model = main_path(lstm_fused, rows)
     torch.cuda.empty_cache()
     int8_model = int8_path(rows)
+    torch.cuda.empty_cache()
+    artifact_phase(int8_model, rows)
     torch.cuda.empty_cache()
     rows.update(train_kernel_phase(lstm_fused))
     state = train_path(rows, "av")

@@ -762,3 +762,35 @@ def test_streaming_ticks_on_card_match_cpu(cuda, kind):
         outs[dev] = np.concatenate([np.stack([t[0], t[1]]) for t in ticks[1:]], axis=1)
     assert outs["cuda"].shape == (2, 24)
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4)
+
+
+def test_exported_int8_step_replays_the_kernels(cuda, tmp_path):
+    """A serving artifact of the int8-tower AV step exported on the card:
+    the program calls the three custom ops, its replay launches K1b twice,
+    K3 once and K2 eight times (the counters read around the replay
+    alone), and equals the live step bit for bit."""
+    from avvad_tpu_torch.export import ServingArtifact, make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD, calibrate
+
+    t = 8
+    model = AVVAD(lstm_hidden_size=64, lstm_layers=2, mcb_output_size=256,
+                  use_kernel_lstm=True, lstm_state_quant="int8", tower_int8=True,
+                  tower_quant_mode="static", tower_pallas=True).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    wave = torch.randn(2, 256 * (t - 1) + 1024, generator=g).to(cuda)
+    video = (torch.rand(2, t, 67, 67, generator=g) * 255).to(cuda)
+    calibrate(model, [(torch.zeros(2, t, 513, device=cuda), video)])
+    fn = make_waveform_serving_fn(model, t_frames=t, device=cuda)
+    live = fn(wave, video)
+    path = str(tmp_path / "int8.avvadx")
+    ServingArtifact.build({"b2": (fn, (wave, video))}).save(path)
+    loaded = ServingArtifact.load(path)
+    assert len(loaded.meta["custom_ops"]["b2"]) == 3 and loaded.meta["device"] == "cuda"
+    for mod in (lstm_fused, conv_fused, stem_fused):
+        mod.reset_launches()
+    got = loaded.call("b2", wave, video)
+    torch.cuda.synchronize()
+    assert conv_fused.launches[conv_fused.KERNEL_NAME] == 8
+    assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0, stem_fused.NHWC_KERNEL_NAME: 1}
+    assert sum(lstm_fused.launches.values()) == 2
+    assert torch.equal(got, live)

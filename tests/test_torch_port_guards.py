@@ -295,3 +295,37 @@ def test_prefetcher_and_trainer_prefetch_raise_without_a_card(monkeypatch, tmp_p
         evaluate_split(card, [], "audio", str(tmp_path / "eval"), verbose=False)
     last = Trainer(state, "audio", str(tmp_path / "cpu")).fit([batch], [batch], end_epoch=2)
     assert state.step == 1 and np.isfinite(last["train"]["loss"])
+
+
+def test_import_guard_covers_the_artifact_modules():
+    """The serving artifacts: export.py and the modules that
+    register the kernels' custom ops."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"avvad_tpu_torch/export.py", "avvad_tpu_torch/ops/lstm_fused.py",
+            "avvad_tpu_torch/ops/conv_fused.py", "avvad_tpu_torch/ops/stem_fused.py",
+            "avvad_tpu_torch/models/mcb.py"} <= names
+    from avvad_tpu_torch import export
+
+    for op in ("lstm_infer", "int8_basic_block", "stem_epilogue_pool_quant"):
+        assert hasattr(getattr(torch.ops, export.OP_NAMESPACE), op)
+
+
+def test_artifact_server_raises_without_a_card(monkeypatch, tmp_path):
+    """An artifact exported on the card rebuilds its server on the card:
+    without one, load_multistream_server raises; device="cpu" is honoured
+    only for a program whose constants lie there."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.export import (ServingArtifact, export_multistream_server,
+                                        load_multistream_server)
+    from avvad_tpu_torch.models import AudioVAD
+
+    path = str(tmp_path / "s.avvadx")
+    export_multistream_server(serve.MultiStreamVAD(
+        AudioVAD(lstm_hidden_size=8, lstm_layers=1), 2, block_frames=4, device="cpu"), path)
+    assert load_multistream_server(path).tick() == {}
+    art = ServingArtifact.load(path)
+    art.meta["device"] = "cuda"
+    art.save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_multistream_server(path)
