@@ -20,6 +20,14 @@ into ``train.Trainer``; ``evaluate`` calibrates the int8 tower, writes
 each utterance's predictions over a split and scores them. ``config`` is
 the typed configuration, ``processing`` the host numpy signal processing.
 
+Scale-out: ``parallel`` holds (data, model) device meshes and
+``torch.distributed`` process groups; ``train.Trainer(mesh=)`` and
+``evaluate.evaluate_split(mesh=)`` run one rank a mesh position (data
+parallel, the wide LSTM weights column-sharded over ``model``), and the
+multi-stream servers shard their streams over a mesh's data devices.
+Training options: dropout on the three VAD models and the auxiliary
+losses of ``models.losses``.
+
 The package imports torch, numpy, scipy and the standard library at module
 level; ``h5py`` and ``yaml`` only inside the functions that read or write
 HDF5 or YAML. The JAX package ``avvad_tpu`` is its reference and is never

@@ -20,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -144,10 +144,14 @@ class Prefetcher:
     may still read it. The pinned buffers come from PyTorch's caching host
     allocator, which hands one out again only once its copy has run. A
     loader exception is raised in the consumer, as in the JAX package.
+    ``put_fn``: applied to each host batch before its upload (a data
+    rank keeps its rows: ``parallel.shard_batch``).
     """
 
-    def __init__(self, it: Iterable[Batch], depth: int = 2, device=None):
+    def __init__(self, it: Iterable[Batch], depth: int = 2, device=None,
+                 put_fn: Optional[Callable[[Batch], Batch]] = None):
         self.device = resolve_device(device)
+        self._put_fn = put_fn
         self._side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                       else None)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -167,6 +171,8 @@ class Prefetcher:
     def _fill(self, it):
         try:
             for batch in it:
+                if self._put_fn is not None:
+                    batch = self._put_fn(batch)
                 if self._side is None:
                     self._q.put((Batch(*[None if a is None else self._put(a)
                                          for a in batch]), None))

@@ -8,11 +8,14 @@ The reference fans batch-1 inference out over a spawn pool of GPUs
 bucketed, padded batches and classified by one predict step a batch, with
 the same ``.npy`` names and directory layout.
 
+``evaluate_split(mesh=)`` shards each padded batch's rows over the mesh's
+``data`` axis, one rank a mesh position (``parallel``): each rank
+classifies its rows and writes its utterances' files, and the report is
+the global one.
+
 Not ported: ``prewarm_predict`` and ``evaluate_split(prewarm=)``, which
 compile the XLA programs of every bucket ahead and in parallel (eager
-PyTorch compiles nothing per shape), and ``evaluate_split(mesh=)`` (the
-utterance axis sharded over devices), which waits for the port's
-``torch.distributed`` scale-out.
+PyTorch compiles nothing per shape).
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import DataLoader, Prefetcher
 from ..data.batching import bucket_length
 from ..models.quantize import calibrate
+from ..parallel.mesh import shard_batch, shard_params
 from ..train.steps import _forward_inputs, _tensor, make_predict_step
 
 
@@ -120,6 +125,7 @@ def evaluate_split(
     bucket_ladder: bool = True,
     eps: float = 1e-8,
     verbose: bool = True,
+    mesh=None,
 ) -> dict:
     """Classify every utterance of `source`, write predictions, return a
     wall-clock report (the reference's perf_counter harness,
@@ -128,8 +134,24 @@ def evaluate_split(
     Batches go to the state's device through the ``Prefetcher`` (pinned
     memory, a side stream), and the normalisation statistics once, before
     the loop: a pageable upload inside the loop would wait for the previous
-    batch's kernels and make the two-deep drain below a serial loop."""
-    predict = make_predict_step(modality, eps)
+    batch's kernels and make the two-deep drain below a serial loop.
+
+    With ``mesh`` (one rank a mesh position; the state on the rank's
+    device), ``batch_size`` must be a multiple of the data axis; every rank
+    iterates the same padded batches and keeps its data coordinate's rows;
+    the ranks of model coordinate 0 write the files; the wide LSTM weights
+    of ``state.model`` are sharded in place (``parallel.shard_params``);
+    the report (counts, ``rt_factor`` over the slowest rank's time) is the
+    global one, on every rank."""
+    predict = make_predict_step(modality, eps, mesh=mesh)
+    writes = True
+    if mesh is not None:
+        mesh.check_world()
+        if batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {batch_size} not divisible by data axis "
+                             f"{mesh.shape['data']}")
+        shard_params(mesh, state.model)
+        writes = mesh.model_index == 0
     dev = state.device
     stats = (None if norm_stats is None else
              {k: _tensor(v, dev) for k, v in norm_stats.items()})
@@ -161,7 +183,8 @@ def evaluate_split(
                 pred = pred[..., 0]
             else:
                 pred = pred.T  # (y, T): reference feature-major layout
-            write_predictions(classif_data_dir, noisy_rel, pred)
+            if writes:
+                write_predictions(classif_data_dir, noisy_rel, pred)
             n_utts += 1
             n_frames += length
 
@@ -170,6 +193,8 @@ def evaluate_split(
 
     def host_batches():
         for batch in loader:
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
             meta.append((np.asarray(batch.indices), np.asarray(batch.lengths)))
             yield batch
 
@@ -188,6 +213,13 @@ def evaluate_split(
         drain(_finish_download(*_start_download(pending[0])), *pending[1:])
 
     elapsed = time.perf_counter() - t0
+    if mesh is not None and dist.is_initialized():
+        counts = torch.tensor([n_utts, n_frames], dtype=torch.float64, device=dev)
+        dist.all_reduce(counts, group=mesh.group("data"))
+        n_utts, n_frames = (int(c) for c in counts.tolist())
+        slowest = torch.tensor([elapsed], dtype=torch.float64, device=dev)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        elapsed = slowest.item()
     report = {
         "n_utterances": n_utts,
         "n_frames": n_frames,
@@ -195,7 +227,7 @@ def evaluate_split(
         "audio_seconds": n_frames / 62.5,
         "rt_factor": (n_frames / 62.5) / elapsed if elapsed > 0 else float("inf"),
     }
-    if verbose:
+    if verbose and (mesh is None or mesh.rank == 0):
         print(f"evaluate_split: {n_utts} utts, {n_frames} frames in "
               f"{elapsed:.2f}s ({report['rt_factor']:.1f}x real time)")
     return report

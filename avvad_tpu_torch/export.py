@@ -21,7 +21,10 @@ fp32 in the STFT DFT and the MCB matmuls), and ``load`` and ``call`` set
 them again. ``meta`` also records ``torch_version``, the device and its
 kind, and the custom ops each entry calls.
 
-Scale-out (``mesh=``) is ROADMAP queue 1 item 6: only ``mesh=None`` here.
+A mesh-sharded multi-stream server exports the tick of one shard (its
+N / n_data streams) and records ``mesh_data``; ``load_multistream_server``
+rebuilds the sharded server, one replay of the tick a shard, on each
+shard's device.
 """
 
 from __future__ import annotations
@@ -46,8 +49,6 @@ _META_NAME = "meta.json"
 _ENTRY_SUFFIX = ".pt2"
 _FORMAT_VERSION = 1
 OP_NAMESPACE = "avvad_tpu_torch"
-_MESH_TODO = ("mesh-sharded serving is not ported yet (ROADMAP queue 1 item 6, "
-              "scale-out): pass mesh=None")
 
 
 class ServingStep(nn.Module):
@@ -192,16 +193,22 @@ class ServingArtifact:
     def device(self) -> torch.device:
         return torch.device(self.meta.get("device", "cpu"))
 
-    def call(self, name: str, *args):
-        """Run entry ``name`` on the artifact's device (shapes must match the
-        exported example shapes exactly: static-shape serving). Arrays and
-        scalars are moved there; the outputs stay there."""
-        module = self._modules.get(name)
+    def call(self, name: str, *args, device: str | torch.device | None = None):
+        """Run entry ``name`` on the artifact's device, or on ``device`` (a
+        copy of the program's state moved there, kept for the next call);
+        shapes must match the exported example shapes exactly (static-shape
+        serving). Arrays and scalars are moved there; the outputs stay
+        there."""
+        dev = self.device if device is None else torch.device(device)
+        module = self._modules.get((name, dev))
         if module is None:
-            module = self._modules[name] = self.entries[name].module()
+            module = self.entries[name].module()
+            if dev != self.device:
+                module = module.to(dev)
+            self._modules[(name, dev)] = module
         _set_precision(self.meta.get("precision", {}))
         with torch.inference_mode():
-            return module(*_to_device(args, self.device))
+            return module(*_to_device(args, dev))
 
     def _user_inputs(self, name: str) -> list:
         program = self.entries[name]
@@ -260,16 +267,19 @@ def make_multistream_tick_fn(server) -> tuple:
     AV ``(frames, video[, vidx], peaks, active, carries)``, video
     ``(video[, vidx], active, carries)``, audio ``(frames, peaks, active,
     carries)``; ``frames`` is the (N, span) sample span (int16 with
-    ``audio_int16``) on the span wire, else (N, block, nfft) windows."""
+    ``audio_int16``) on the span wire, else (N, block, nfft) windows. A
+    mesh-sharded server's tick is its first shard's: N / n_data streams."""
     from . import serve
 
     if not isinstance(server.model, nn.Module):
         raise TypeError("the server runs a step_override: it has no model to export")
-    dev, n, bf = server._dev, server.n, server.block_frames
+    shard = server._shards[0]
+    dev, n, bf = shard.dev, shard.hi - shard.lo, server.block_frames
     carries = serve._zero_carries(server.model, n, dev)
     peaks = torch.ones(n, device=dev)
     active = torch.ones(n, device=dev)
-    body = server._tick_body
+    body = shard.view._tick_body
+    model = shard.view.model
 
     def audio_example():
         if server.span_wire:
@@ -284,22 +294,22 @@ def make_multistream_tick_fn(server) -> tuple:
     vidx = torch.zeros(n, bf, dtype=torch.int32, device=dev)
     if isinstance(server, serve.MultiStreamAVVAD):
         if server.video_fps:
-            return (ServingStep(server.model, body),
+            return (ServingStep(model, body),
                     (audio_example(), video_example(), vidx, peaks, active, carries))
 
         def av_tick(frames, video, peaks, active, carries):
             return body(frames, video, None, peaks, active, carries)
-        return (ServingStep(server.model, av_tick),
+        return (ServingStep(model, av_tick),
                 (audio_example(), video_example(), peaks, active, carries))
     if isinstance(server, serve.MultiStreamVideoVAD):
         if server.video_fps:
-            return ServingStep(server.model, body), (video_example(), vidx, active, carries)
+            return ServingStep(model, body), (video_example(), vidx, active, carries)
 
         def video_tick(video, active, carries):
             return body(video, None, active, carries)
-        return ServingStep(server.model, video_tick), (video_example(), active, carries)
+        return ServingStep(model, video_tick), (video_example(), active, carries)
     if isinstance(server, serve.MultiStreamVAD):
-        return ServingStep(server.model, body), (audio_example(), peaks, active, carries)
+        return ServingStep(model, body), (audio_example(), peaks, active, carries)
     raise TypeError(f"not a multi-stream server: {type(server)!r}")
 
 
@@ -327,7 +337,7 @@ def export_multistream_server(server, path: str, meta: Optional[dict] = None) ->
         "audio_int16": bool(getattr(server, "audio_int16", False)),
         "video_fps": getattr(server, "video_fps", None),
         "video_uint8": bool(getattr(server, "_vdtype", None) == np.uint8),
-        "mesh_data": None,
+        "mesh_data": server.mesh_data,
     }
     if hasattr(server, "cfg"):  # audio / AV: the hub cuts the traced windows
         geometry["stft_cfg"] = dataclasses.asdict(server.cfg)
@@ -335,28 +345,50 @@ def export_multistream_server(server, path: str, meta: Optional[dict] = None) ->
                           meta={"multistream": geometry, **(meta or {})}).save(path)
 
 
+def _local_mesh(n_data: int, device: torch.device):
+    """A serving mesh over the first ``n_data`` local devices of
+    ``device``'s kind: the cards cuda:0 .. cuda:n_data-1, or the CPU
+    ``n_data`` times."""
+    from .parallel import make_mesh
+
+    if device.type == "cpu":
+        return make_mesh(n_data=n_data, n_model=1, devices=["cpu"] * n_data)
+    have = torch.cuda.device_count()
+    if have < n_data:
+        raise ValueError(f"the artifact shards over {n_data} cards and {have} are "
+                         "visible: pass a mesh (devices may repeat)")
+    return make_mesh(n_data=n_data, n_model=1,
+                     devices=[f"cuda:{i}" for i in range(n_data)])
+
+
 def load_multistream_server(path: str, native: bool = True, mesh=None,
                             device: str | torch.device | None = None):
     """Rebuild a multi-stream server from ``export_multistream_server``'s
     artifact: a real MultiStream{VAD,VideoVAD,AVVAD} (feed / tick /
     reset_stream / ``VADServer``) whose step is the artifact's tick, on
-    ``device`` (by default the device the artifact was exported on)."""
+    ``device`` (by default the device the artifact was exported on). An
+    artifact exported from a mesh-sharded server replays sharded: pass a
+    mesh with a matching ``data`` axis (default: one over the first
+    ``mesh_data`` local devices); each shard replays the tick on its
+    device."""
     from . import serve
     from .config import STFTConfig
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     artifact = ServingArtifact.load(path)
     geo = artifact.meta.get("multistream")
     if geo is None:
         raise ValueError(f"{path}: not a multistream server artifact")
-    if geo.get("mesh_data"):
-        raise NotImplementedError(_MESH_TODO)
+    dev = resolve_device(artifact.device if device is None else device)
+    if geo.get("mesh_data") and mesh is None:
+        mesh = _local_mesh(geo["mesh_data"], dev)
+    if mesh is not None and geo.get("mesh_data") != mesh.shape.get("data"):
+        raise ValueError(
+            f"{path}: exported for data axis {geo.get('mesh_data')}, "
+            f"got mesh data axis {mesh.shape.get('data')}")
     facts = SimpleNamespace(lstm_hidden_size=geo["lstm_hidden"],
                             lstm_layers=geo["lstm_layers"])
-    dev = resolve_device(artifact.device if device is None else device)
     common = dict(n_streams=geo["n_streams"], block_frames=geo["block_frames"],
-                  max_backlog_blocks=geo["max_backlog_blocks"], device=dev)
+                  max_backlog_blocks=geo["max_backlog_blocks"], device=dev, mesh=mesh)
     if geo.get("stft_cfg") is not None:
         common["stft_cfg"] = STFTConfig(**geo["stft_cfg"])
     if geo["kind"] != "video":
@@ -366,7 +398,8 @@ def load_multistream_server(path: str, native: bool = True, mesh=None,
                       audio_int16=geo.get("audio_int16", False), native=native)
 
     def tick(*args):
-        return artifact.call("tick", *args)
+        # a shard's tensors are on its device: replay there
+        return artifact.call("tick", *args, device=args[-1][0][0].device)
 
     if geo["kind"] == "av":
         def av_step(frames, video, vidx, peaks, active, carries):

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sync import all_reduce_sum, data_group
+
 
 def count_sketch_matrix(rng: np.random.Generator, in_dim: int, out_dim: int) -> np.ndarray:
     """Dense (in_dim, out_dim) count-sketch matrix: row i has s_i at column h_i."""
@@ -185,10 +187,14 @@ def signed_sqrt(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def global_l2_normalize(x: torch.Tensor, eps: float = 1e-12,
                         axes=None) -> torch.Tensor:
     """x / max(||x||_2, eps) with the norm detached. ``axes=None`` is the
-    whole-tensor norm (every batch row couples through it); a tuple of axes
-    reduces over those only (keepdim)."""
+    whole-tensor norm (every batch row couples through it; under
+    ``parallel.sync.data_parallel`` every rank's rows: the sum of squares is
+    added over the data group); a tuple of axes reduces over those only
+    (keepdim)."""
     if axes is None:
-        norm = torch.sqrt(torch.sum(x * x))
+        group = data_group()
+        sq = torch.sum(x * x).detach()
+        norm = torch.sqrt(sq if group is None else all_reduce_sum(sq, group))
     else:
         norm = torch.sqrt(torch.sum(x * x, dim=tuple(axes), keepdim=True))
     return x / torch.clamp(norm.detach(), min=eps)

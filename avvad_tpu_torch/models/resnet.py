@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sync import all_reduce_sum, data_group
 from ..ops.conv_fused import conv_exact, fold_block, quant_hwio, trunk_features_int8
 from ..ops.stem_fused import fold_stem, stem_epilogue_pool_quant
 
@@ -99,17 +100,25 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     (flax's 0.9) and the biased variance (torch's own update would take the
     unbiased one), unless a recompute has them frozen
     (``running_stats_frozen``). Gradients flow through the batch
-    statistics."""
+    statistics. Under ``parallel.sync.data_parallel`` the statistics are
+    those of the global batch: the sum, the sum of squares (two-pass: the
+    sum of squared deviations from the global mean) and the count, added
+    over the data group's ranks, so every rank normalises and updates its
+    running statistics as the one device would."""
     x = _at_least_fp32(x)
     if not bn.training:
         return bn(x)
     axes = [0, *range(2, x.ndim)]
     shape = [1, -1] + [1] * (x.ndim - 2)
-    mean = x.mean(axes)
-    if fast_variance:
-        var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
+    group = data_group()
+    if group is not None:
+        mean, var = _global_batch_stats(x, axes, shape, fast_variance, group)
     else:
-        var = torch.mean(torch.square(x - mean.view(shape)), axes)
+        mean = x.mean(axes)
+        if fast_variance:
+            var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
+        else:
+            var = torch.mean(torch.square(x - mean.view(shape)), axes)
     if not _stats_frozen:
         with torch.no_grad():
             m = bn.momentum
@@ -117,6 +126,22 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
             bn.running_var.copy_((1 - m) * bn.running_var + m * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+def _global_batch_stats(x: torch.Tensor, axes: list, shape: list,
+                        fast_variance: bool, group) -> tuple:
+    """(mean, biased variance) per channel over the data group's rows."""
+    count = torch.tensor([x.numel() / x.shape[1]], dtype=x.dtype, device=x.device)
+    if fast_variance:
+        sums = all_reduce_sum(torch.cat([x.sum(axes), (x * x).sum(axes), count]), group)
+        c = x.shape[1]
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        return mean, torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+    sums = all_reduce_sum(torch.cat([x.sum(axes), count]), group)
+    mean = sums[:-1] / sums[-1]
+    sq = all_reduce_sum(torch.square(x - mean.view(shape)).sum(axes), group)
+    return mean, sq / sums[-1]
 
 
 def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:

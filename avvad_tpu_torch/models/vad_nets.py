@@ -17,7 +17,11 @@ statistics and updates its running ones (``resnet.batch_norm``).
 ``tower_stem_int8``: the int8 tower's W8A8 stem (``ResNet18.stem_int8``);
 ``mcb_precision`` on AVVAD: "highest" (fp32 MCB matmuls, the default) or
 "default" (bf16 operands, fp32 sums: the TPU's Precision.DEFAULT).
-Dropout is not ported: ``dropout_rate`` > 0 raises.
+``dropout_rate`` on AudioVAD, VideoVAD and AVVAD: flax's ``nn.Dropout`` at
+the JAX sites, after the LSTM stack and before the Dense, in train mode
+only, its mask drawn from the ``DropoutRNG`` the caller passes
+(``train.steps.make_train_step(dropout=True)``), never from torch's global
+generator.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -96,10 +101,62 @@ def _tower(dtype, chunk, g, tower_int8, tower_quant_mode, tower_pallas,
                        stem_int8=stem_int8)
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate:
-        raise NotImplementedError("dropout is not ported yet: use "
-                                  "dropout_rate=0 (the reference's setting)")
+def draw_keep(generator: torch.Generator, shape: tuple, keep_prob: float) -> torch.Tensor:
+    """A Bernoulli(keep_prob) keep mask of ``shape`` (bool), drawn on the
+    generator's device."""
+    return torch.rand(shape, generator=generator, device=generator.device) < keep_prob
+
+
+class DropoutRNG:
+    """Where a train step's dropout masks come from: a generator on the
+    step's device (seeded per step, see ``dropout_generator``), and, under data
+    parallelism, the global batch size and this rank's rows. Each mask is
+    drawn for the whole global batch and the rank keeps its rows, so a
+    meshed step drops exactly what the unmeshed step drops. Masks are
+    drawn in the order the model calls ``keep``."""
+
+    def __init__(self, generator: torch.Generator, rows: Optional[slice] = None,
+                 global_batch: Optional[int] = None):
+        self.generator, self.rows, self.global_batch = generator, rows, global_batch
+
+    def keep(self, shape: tuple, keep_prob: float) -> torch.Tensor:
+        full = (self.global_batch or shape[0], *shape[1:])
+        mask = draw_keep(self.generator, full, keep_prob)
+        return mask if self.rows is None else mask[self.rows]
+
+
+def dropout_generator(seed: int, step: int, device: str | torch.device) -> torch.Generator:
+    """The generator of step ``step`` on ``device``: the port's counterpart
+    of JAX's ``fold_in(PRNGKey(seed), step)`` (its stream is not JAX's, and
+    a card's stream is not the CPU's). Every rank on the same kind of
+    device draws the same masks."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]) & (2 ** 63 - 1))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode with rate > 0, each entry is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate), else
+    zeroed; identity otherwise."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout_rate {rate} outside [0, 1]")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if rng is None:
+            raise ValueError(f"dropout_rate={self.rate} in train mode needs a "
+                             "dropout_rng: build the step with "
+                             "make_train_step(..., dropout=True)")
+        keep_prob = 1.0 - self.rate
+        keep = rng.keep(tuple(x.shape), keep_prob).to(x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def _head(hidden: int, y_dim: int, g: torch.Generator) -> nn.Linear:
@@ -119,17 +176,19 @@ class AudioVAD(nn.Module):
                  use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
                  dropout_rate: float = 0.0, seed: int = 0):
         super().__init__()
-        _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.lstm_audio = LSTMStack(num_audio_features, lstm_hidden_size,
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
                                     state_quant=lstm_state_quant, generator=g)
+        self.dropout = Dropout(dropout_rate)
         self.vad_audio = _head(lstm_hidden_size, y_dim, g)
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        return self.vad_audio(self.lstm_audio(audio.float()).float())
+    def forward(self, audio: torch.Tensor,
+                dropout_rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        x = self.dropout(self.lstm_audio(audio.float()).float(), dropout_rng)
+        return self.vad_audio(x)
 
     def streaming_head(self, feats: torch.Tensor, carries: list):
         """One streaming block: features (N, Tc, 513) and per-layer (h, c)
@@ -188,7 +247,6 @@ class VideoVAD(nn.Module):
                  gray_stem: bool = True, tower_stem_int8: bool = False,
                  dropout_rate: float = 0.0, seed: int = 0):
         super().__init__()
-        _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.tower = _tower(dtype, tower_chunk, g, tower_int8, tower_quant_mode,
@@ -197,11 +255,13 @@ class VideoVAD(nn.Module):
                                     lstm_layers, dtype=dtype,
                                     use_kernel=use_kernel_lstm,
                                     state_quant=lstm_state_quant, generator=g)
+        self.dropout = Dropout(dropout_rate)
         self.vad_video = _head(lstm_hidden_size, y_dim, g)
 
     def forward(self, video: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 return_last: bool = False,
-                video_frame_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                video_frame_indices: Optional[torch.Tensor] = None,
+                dropout_rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """video (B, T_v, 67, 67) -> logits (B, T, y_dim), or (B, y_dim) at
         each sequence's last valid step with ``return_last`` (needs
         ``lengths``). ``video_frame_indices``: as in AVVAD.forward."""
@@ -213,7 +273,7 @@ class VideoVAD(nn.Module):
             if lengths is None:
                 raise ValueError("return_last requires lengths")
             x = select_last(x, lengths.to(x.device))
-        return self.vad_video(x.float())
+        return self.vad_video(self.dropout(x.float(), dropout_rng))
 
     def streaming_head(self, video: torch.Tensor, carries: list,
                        video_frame_indices: Optional[torch.Tensor] = None):
@@ -251,7 +311,6 @@ class AVVAD(nn.Module):
                  mcb_precision: str = "highest", dropout_rate: float = 0.0,
                  seed: int = 0):
         super().__init__()
-        _no_dropout(dropout_rate)
         g = torch.Generator().manual_seed(seed)
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
         self.use_mcb = use_mcb
@@ -269,6 +328,7 @@ class AVVAD(nn.Module):
         self.lstm_merged = LSTMStack(fused, lstm_hidden_size, lstm_layers,
                                      dtype=dtype, use_kernel=use_kernel_lstm,
                                      state_quant=lstm_state_quant, generator=g)
+        self.dropout = Dropout(dropout_rate)
         self.vad_merged = _head(lstm_hidden_size, y_dim, g)
 
     def set_lstm_state_quant(self, state_quant: str) -> None:
@@ -291,7 +351,8 @@ class AVVAD(nn.Module):
                           fast_variance=False).reshape(y.shape)
 
     def forward(self, audio: torch.Tensor, video: torch.Tensor,
-                video_frame_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                video_frame_indices: Optional[torch.Tensor] = None,
+                dropout_rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """audio (B, T, 513) log-power features, video (B, T_v, 67, 67).
         With ``video_frame_indices`` ((T,) int, one per audio frame) the
         video holds unique camera-rate frames and the tower features are
@@ -300,7 +361,7 @@ class AVVAD(nn.Module):
         if video_frame_indices is not None:
             v = v.index_select(1, video_frame_indices.to(v.device).long())
         y = self.lstm_merged(self._fuse(audio.float(), v))
-        return self.vad_merged(y.float())
+        return self.vad_merged(self.dropout(y.float(), dropout_rng))
 
     def streaming_head(self, audio_feats: torch.Tensor, video: torch.Tensor,
                        carries: list, per_stream_norm: bool = False,

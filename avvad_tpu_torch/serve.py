@@ -32,11 +32,18 @@ callable of its step's signature, e.g. an artifact's tick:
 ``export.load_multistream_server``) runs that instead, and needs only
 ``lstm_hidden_size`` and ``lstm_layers`` of ``model``.
 
-Not ported yet: the ``mesh=`` option (ROADMAP queue 1 item 6).
+``mesh=`` (a ``parallel.Mesh``) shards a multi-stream server's streams
+over the mesh's ``data`` devices, in one process, as the JAX servers do
+(avvad_tpu/serve.py:53-87): each data device holds a replica of the
+weights (and of the int8 tower's fold) and the carries of its rows; a
+tick runs every shard's step on its device and concatenates the
+probabilities in stream order, with no collective. ``n_streams`` must be
+divisible by the data axis.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -147,6 +154,29 @@ def _place(model, device):
     return dev, model.to(dev).eval()
 
 
+def _serving_devices(mesh, n_streams: int) -> list:
+    """The data devices of a serving mesh (one a shard of streams)."""
+    if "data" not in mesh.axis_names:
+        raise ValueError("serving mesh needs a 'data' axis")
+    n_data = mesh.shape["data"]
+    if n_streams % n_data:
+        raise ValueError(f"n_streams={n_streams} must be divisible by the "
+                         f"mesh data axis ({n_data})")
+    return [resolve_device(d) for d in mesh.devices[:, 0]]
+
+
+class _Shard:
+    """One data device's part of a multi-stream server: its rows
+    [lo, hi), its view of the server (the model replica and the
+    frontend's constants on its device; its ``_step``) and its carries."""
+
+    __slots__ = ("dev", "lo", "hi", "view", "carries")
+
+    def __init__(self, dev, lo, hi, view):
+        self.dev, self.lo, self.hi, self.view = dev, lo, hi, view
+        self.carries = None
+
+
 def _zero_carries(model, n: int, device) -> list:
     h = model.lstm_hidden_size
     return [(torch.zeros(n, h, device=device), torch.zeros(n, h, device=device))
@@ -255,15 +285,22 @@ class _MultiStreamBase:
     the two-deep pipelined tick."""
 
     def _init_streams(self, model, n_streams: int, block_frames: int,
-                      max_backlog_blocks: int, device, step_override) -> None:
+                      max_backlog_blocks: int, device, step_override,
+                      mesh=None) -> None:
         """``step_override``: run it as the step, with ``model`` only the
         facts the server reads (``lstm_hidden_size``, ``lstm_layers``),
-        neither moved nor switched to eval mode."""
+        neither moved nor switched to eval mode; under a mesh it runs each
+        shard's rows, on tensors of the shard's device. ``mesh``: the
+        shards' devices (``device`` is then the first of them)."""
+        self._mesh_devices = None if mesh is None else _serving_devices(mesh, n_streams)
+        if self._mesh_devices is not None:
+            device = self._mesh_devices[0]
         if step_override is None:
             self._dev, self.model = _place(model, device)
         else:
             self._dev, self.model = resolve_device(device), model
             self._step = step_override
+        self._shards = None
         self.n = n_streams
         self.block_frames = block_frames
         self.max_backlog_blocks = max_backlog_blocks
@@ -277,15 +314,74 @@ class _MultiStreamBase:
         with torch.inference_mode():
             return self._tick_body(*args)
 
+    @property
+    def mesh_data(self) -> Optional[int]:
+        """The number of data shards, or None for an unsharded server."""
+        return None if self._mesh_devices is None else len(self._mesh_devices)
+
+    def _build_shards(self) -> list:
+        """One shard for an unsharded server (the server itself as its
+        view); under a mesh one a data device, each view a shallow copy of
+        the server holding every tensor attribute on its device and a
+        replica of the model (the first shard the server's own)."""
+        if self._mesh_devices is None:
+            return [_Shard(self._dev, 0, self.n, self)]
+        per = self.n // len(self._mesh_devices)
+        shards = []
+        for k, dev in enumerate(self._mesh_devices):
+            view = copy.copy(self)
+            for name, value in vars(self).items():
+                if isinstance(value, torch.Tensor):
+                    setattr(view, name, value.to(dev))
+            if k and isinstance(self.model, torch.nn.Module):
+                view.model = _place(copy.deepcopy(self.model), dev)[1]
+            view._dev = dev
+            shards.append(_Shard(dev, k * per, (k + 1) * per, view))
+        return shards
+
+    def _reset_carries(self) -> None:
+        if self._shards is None:
+            self._shards = self._build_shards()
+        for sh in self._shards:
+            sh.carries = _zero_carries(self.model, sh.hi - sh.lo, sh.dev)
+
+    @property
+    def _carries(self) -> list:
+        """The per-layer (h, c) carries of all N streams (under a mesh, the
+        shards' rows concatenated onto the first device: a copy)."""
+        if len(self._shards) == 1:
+            return self._shards[0].carries
+        return [tuple(torch.cat([sh.carries[layer][j].to(self._dev) for sh in self._shards])
+                      for j in (0, 1)) for layer in range(len(self._shards[0].carries))]
+
+    def _run(self, *arrays):
+        """One tick's host arrays, each with the N streams' rows first (or
+        None) -> (N, block) probabilities: every shard's step on its rows,
+        on its device, with its carries; the results in stream order on the
+        first device."""
+        outs = []
+        for sh in self._shards:
+            args = [None if a is None else _upload(a[sh.lo:sh.hi], sh.dev) for a in arrays]
+            probs, sh.carries = sh.view._step(*args, sh.carries)
+            outs.append(probs)
+        return outs[0] if len(outs) == 1 else torch.cat([p.to(self._dev) for p in outs])
+
+    def _sync(self) -> None:
+        for dev in {sh.dev for sh in self._shards}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
     @torch.inference_mode()
     def _clear_carry_row(self, stream_idx: int) -> None:
+        sh = next(sh for sh in self._shards if sh.lo <= stream_idx < sh.hi)
+        row = stream_idx - sh.lo
         cleared = []
-        for h, c in self._carries:
+        for h, c in sh.carries:
             h, c = h.clone(), c.clone()  # a tensor of its own per layer and state
-            h[stream_idx] = 0.0
-            c[stream_idx] = 0.0
+            h[row] = 0.0
+            c[row] = 0.0
             cleared.append((h, c))
-        self._carries = cleared
+        sh.carries = cleared
 
     @staticmethod
     def _mask_carries(active, new_carries, carries):
@@ -466,16 +562,17 @@ class MultiStreamVAD(_MultiStreamBase):
                  max_backlog_blocks: int = 32, span_wire: bool = False,
                  hop_dft: bool = False, audio_int16: bool = False,
                  native: bool = True,
-                 device: str | torch.device | None = None, step_override=None):
+                 device: str | torch.device | None = None, step_override=None,
+                 mesh=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device, step_override)
+                           device, step_override, mesh)
         self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
                          native)
         self.reset()
 
     def reset(self) -> None:
         self._hub.reset()
-        self._carries = _zero_carries(self.model, self.n, self._dev)
+        self._reset_carries()
         self._cancel_all_pending()
 
     def _tick_body(self, frames, peaks, active, carries):
@@ -488,12 +585,9 @@ class MultiStreamVAD(_MultiStreamBase):
         """Run the tick step once before serving traffic (library handles,
         the kernels' build). State is untouched: the step runs on zero
         inputs with active=0, so every stream's carries are mask-restored."""
-        dev = self._dev
-        self._step(_upload(np.zeros(self._audio_shape(), self._adtype), dev),
-                   torch.ones(self.n, device=dev), torch.zeros(self.n, device=dev),
-                   self._carries)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        self._run(np.zeros(self._audio_shape(), self._adtype),
+                  np.ones(self.n, np.float32), np.zeros(self.n, np.float32))
+        self._sync()
 
     def feed(self, stream_idx: int, pcm: np.ndarray) -> None:
         """Buffer samples for one stream (no compute). With audio_int16
@@ -520,11 +614,7 @@ class MultiStreamVAD(_MultiStreamBase):
         blocks, peaks, active, n_active = self._hub.assemble(span=self.span_wire)
         if n_active == 0:
             return {}
-        dev = self._dev
-        probs, self._carries = self._step(
-            _upload(blocks, dev), _upload(peaks, dev), _upload(active, dev),
-            self._carries)
-        return self._finish_tick(probs, active, fetch)
+        return self._finish_tick(self._run(blocks, peaks, active), active, fetch)
 
 
 class StreamingAVVAD:
@@ -720,9 +810,10 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
                  span_wire: bool = False, hop_dft: bool = False,
                  video_fps: Optional[float] = None, audio_int16: bool = False,
                  native: bool = True,
-                 device: str | torch.device | None = None, step_override=None):
+                 device: str | torch.device | None = None, step_override=None,
+                 mesh=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device, step_override)
+                           device, step_override, mesh)
         self._init_audio(stft_cfg, norm_stats, span_wire, hop_dft, audio_int16,
                          native)
         self.video_uint8 = video_uint8
@@ -738,7 +829,7 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
         self._vbufs = [np.zeros((0, 67, 67), self._vdtype)
                        for _ in range(self.n)]
         self._camera_reset()
-        self._carries = _zero_carries(self.model, self.n, self._dev)
+        self._reset_carries()
         self._cancel_all_pending()
 
     def _tick_body(self, frames, video, vidx, peaks, active, carries):
@@ -755,14 +846,10 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
     def warmup(self) -> None:
         """Run the tick step once before serving traffic (see
         MultiStreamVAD.warmup). State is untouched (active=0)."""
-        dev = self._dev
-        vidx = _upload(np.zeros_like(self._vidx), dev) if self.video_fps else None
-        self._step(_upload(np.zeros(self._audio_shape(), self._adtype), dev),
-                   _upload(np.zeros_like(self._vout), dev), vidx,
-                   torch.ones(self.n, device=dev), torch.zeros(self.n, device=dev),
-                   self._carries)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        vidx = np.zeros_like(self._vidx) if self.video_fps else None
+        self._run(np.zeros(self._audio_shape(), self._adtype), np.zeros_like(self._vout),
+                  vidx, np.ones(self.n, np.float32), np.zeros(self.n, np.float32))
+        self._sync()
 
     def feed(self, stream_idx: int, pcm: Optional[np.ndarray] = None,
              video_frames: Optional[np.ndarray] = None) -> None:
@@ -813,11 +900,8 @@ class MultiStreamAVVAD(_MultiStreamBase, _CameraRateVideoMixin):
         for i in range(self.n):
             if active[i]:
                 self._consume_video(i)
-        dev = self._dev
-        vidx = _upload(self._vidx, dev) if self.video_fps else None
-        probs, self._carries = self._step(
-            _upload(blocks, dev), _upload(self._vout, dev), vidx,
-            _upload(peaks, dev), _upload(active, dev), self._carries)
+        vidx = self._vidx if self.video_fps else None
+        probs = self._run(blocks, self._vout, vidx, peaks, active)
         return self._finish_tick(probs, active, fetch)
 
 
@@ -893,15 +977,16 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
     ``tower_pallas``) a tick runs the channels-last K3 once and K2 eight
     times on its unique frames. step_override: a callable ``(video, vidx,
     active, carries) -> (probs, new carries)`` run instead of the model's
-    step. The JAX streamer's ``mesh=`` is not ported."""
+    step. mesh: see the module docstring."""
 
     def __init__(self, model: VideoVAD, n_streams: int,
                  norm_stats: Optional[dict] = None, block_frames: int = 16,
                  max_backlog_blocks: int = 32, video_uint8: bool = False,
                  video_fps: Optional[float] = None,
-                 device: str | torch.device | None = None, step_override=None):
+                 device: str | torch.device | None = None, step_override=None,
+                 mesh=None):
         self._init_streams(model, n_streams, block_frames, max_backlog_blocks,
-                           device, step_override)
+                           device, step_override, mesh)
         self.video_uint8 = video_uint8
         self._vdtype = np.uint8 if video_uint8 else np.float32
         self._v_mean = _norm_stat(norm_stats, "video_mean", self._dev)
@@ -916,7 +1001,7 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
         self._vbufs = [np.zeros((0, 67, 67), self._vdtype)
                        for _ in range(self.n)]
         self._camera_reset()
-        self._carries = _zero_carries(self.model, self.n, self._dev)
+        self._reset_carries()
         self._cancel_all_pending()
 
     def _tick_body(self, video, vidx, active, carries):
@@ -932,12 +1017,9 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
     def warmup(self) -> None:
         """Run the tick step once before serving traffic (see
         MultiStreamVAD.warmup). State is untouched (active=0)."""
-        dev = self._dev
-        vidx = _upload(np.zeros_like(self._vidx), dev) if self.video_fps else None
-        self._step(_upload(np.zeros_like(self._vout), dev), vidx,
-                   torch.zeros(self.n, device=dev), self._carries)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        vidx = np.zeros_like(self._vidx) if self.video_fps else None
+        self._run(np.zeros_like(self._vout), vidx, np.zeros(self.n, np.float32))
+        self._sync()
 
     def feed(self, stream_idx: int, pcm: Optional[np.ndarray] = None,
              video_frames: Optional[np.ndarray] = None) -> None:
@@ -978,8 +1060,5 @@ class MultiStreamVideoVAD(_MultiStreamBase, _CameraRateVideoMixin):
         for i in range(self.n):
             if active[i]:
                 self._consume_video(i)
-        dev = self._dev
-        vidx = _upload(self._vidx, dev) if self.video_fps else None
-        probs, self._carries = self._step(_upload(self._vout, dev), vidx,
-                                          _upload(active, dev), self._carries)
-        return self._finish_tick(probs, active, fetch)
+        vidx = self._vidx if self.video_fps else None
+        return self._finish_tick(self._run(self._vout, vidx, active), active, fetch)

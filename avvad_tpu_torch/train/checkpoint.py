@@ -7,6 +7,13 @@ reference's naming) holding one ``state.pt``; it is written into a
 ``.tmp`` sibling and renamed, so a crashed save leaves only a ``.tmp``
 directory, which ``prune_checkpoints`` sweeps. Model directories resolve
 to their best-vloss (ties: the later epoch) or latest checkpoint.
+
+Under a mesh (``mesh=``, one rank a mesh position) a checkpoint is the
+full, unsharded state: every rank gathers the column-sharded weights and
+their Adam moments, rank 0 writes, and all wait at a barrier; on restore
+every rank reads the full state and keeps its own shards, as the JAX
+package's process 0 writes and every host restores. A meshed checkpoint
+restores into an unmeshed state and the other way round.
 """
 
 from __future__ import annotations
@@ -18,6 +25,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import (full_optimizer_state, full_state_dict,
+                             load_full_optimizer_state, load_full_state_dict)
 
 STATE_FILE = "state.pt"
 TRUNK_PREFIX = "tower.features."
@@ -28,21 +39,39 @@ def checkpoint_name(epoch: int, valid_loss: float) -> str:
     return f"epoch_{epoch:03d}_vloss_{valid_loss:.2f}"
 
 
+def _barrier(mesh) -> None:
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()
+
+
 def save_checkpoint(model_dir: str, state, norm_stats: Optional[dict] = None,
-                    epoch: int = 0, valid_loss: float = 0.0) -> str:
-    """Save a full training checkpoint -> its directory's path."""
+                    epoch: int = 0, valid_loss: float = 0.0, mesh=None) -> str:
+    """Save a full training checkpoint -> its directory's path. ``mesh``:
+    collective; rank 0 writes the gathered state (module docstring)."""
     path = os.path.abspath(os.path.join(model_dir, checkpoint_name(epoch, valid_loss)))
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(), "step": state.step,
+    if mesh is None:
+        model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    else:
+        model_sd = full_state_dict(state.model)
+        opt_sd = full_optimizer_state(state.optimizer, mesh.group("model"))
+        if mesh.rank != 0:
+            _barrier(mesh)
+            return path
+    payload = {"model": model_sd, "optimizer": opt_sd, "step": state.step,
                "norm_stats": {k: torch.as_tensor(np.asarray(v))
                               for k, v in (norm_stats or {}).items() if v is not None}}
+    _write(path, payload)
+    _barrier(mesh)
+    return path
+
+
+def _write(path: str, payload: dict) -> None:
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save(payload, os.path.join(tmp, STATE_FILE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
-    return path
 
 
 def _entries(model_dir: str) -> list:
@@ -115,14 +144,17 @@ def _load(path: str, device) -> dict:
     return torch.load(file, map_location=device, weights_only=True), path
 
 
-def restore_checkpoint(path: str, state, with_opt: bool = True):
+def restore_checkpoint(path: str, state, with_opt: bool = True, mesh=None):
     """Restore model (parameters and buffers), optimizer state and step into
     ``state`` in place. ``path``: a checkpoint, or a model directory (its
-    best-vloss checkpoint) -> (state, norm_stats (numpy) or None, epoch)."""
+    best-vloss checkpoint) -> (state, norm_stats (numpy) or None, epoch).
+    A model with sharded weights keeps its columns of each (``mesh``: the
+    ranks first wait for each other, so that rank 0's write is done)."""
+    _barrier(mesh)
     payload, path = _load(path, state.device)
-    state.model.load_state_dict(payload["model"], strict=True)
+    load_full_state_dict(state.model, payload["model"])
     if with_opt:
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_full_optimizer_state(state.optimizer, payload["optimizer"])
     state.step = int(payload["step"])
     norm_stats = {k: v.cpu().numpy() for k, v in payload["norm_stats"].items()} or None
     m = _CKPT_RE.match(os.path.basename(os.path.normpath(path)))

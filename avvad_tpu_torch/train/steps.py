@@ -12,6 +12,21 @@ kernel. The modalities are "audio" (``AudioVAD``), "video" (``VideoVAD``,
 its ResNet-18 trained with the rest), "av" (``AVVAD``, the trunk frozen
 or not) and "waveform" (``RawAudioVAD`` on ``Batch.waveform``, which is
 not normalised).
+
+``dropout=True`` (for models built with ``dropout_rate`` > 0) draws each
+step's masks on the state's device, from a generator there seeded from
+``(dropout_seed, state.step)``, the counterpart of JAX's
+``fold_in(PRNGKey(dropout_seed), step)``.
+
+With ``mesh=`` a step is the rank-local part of one data- (and tensor-)
+parallel step over a process group of one rank a mesh position
+(``parallel.mesh``): it takes this rank's rows of the global batch
+(``parallel.shard_batch``), the layers that reduce over the batch take
+global statistics (``parallel.sync``), the gradients are added over the
+``data`` axis (a SUM: the loss is a sum over sequences), dropout masks are
+drawn for the global batch and cut to the rank's rows, and the loss and
+metrics are those of the global batch. It then equals the unmeshed step on
+the global batch, as the JAX mesh step does.
 """
 
 from __future__ import annotations
@@ -19,7 +34,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.losses import batch_mean_f1_metrics, masked_sequence_bce
+from ..models.losses import batch_f1_sums, masked_sequence_bce, mean_from_sums
+from ..models.vad_nets import DropoutRNG, dropout_generator
+from ..parallel.mesh import all_reduce_grads, batch_rows
+from ..parallel.sync import all_reduce_sum, data_parallel
 
 MODALITIES = ("audio", "video", "av", "waveform")
 
@@ -58,68 +76,114 @@ def _forward_inputs(modality: str, batch, norm_stats, eps: float, device) -> tup
     return {"audio": (audio,), "video": (video,), "av": (audio, video)}[modality]
 
 
-def _metrics(logits, label, mask, loss, eps: float) -> dict:
+class _Spmd:
+    """A meshed step's view of its rank: the data group (gradients, batch
+    statistics, metrics) and the rows of the global batch it holds."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.group = mesh.group("data")
+        self.n_data = mesh.shape["data"]
+
+    def rows(self, local_batch: int) -> slice:
+        return batch_rows(self.mesh, local_batch * self.n_data)
+
+
+def _spmd(mesh):
+    return None if mesh is None else _Spmd(mesh)
+
+
+def _metrics(logits, label, mask, loss, eps: float, spmd=None) -> dict:
+    """Loss and per-sequence metrics of the (global) batch."""
     y_hat_hard = (torch.sigmoid(logits) > 0.5).float()
-    acc, prec, rec, f1 = batch_mean_f1_metrics(y_hat_hard, label, mask, eps)
+    sums = batch_f1_sums(y_hat_hard, label, mask, eps)
+    if spmd is not None and spmd.group is not None:
+        both = all_reduce_sum(torch.cat([loss.reshape(1), sums]), spmd.group)
+        loss, sums = both[0], both[1:]
+    acc, prec, rec, f1 = mean_from_sums(sums)
     return {"loss": loss, "accuracy": acc, "precision": prec, "recall": rec,
             "f1": f1}
 
 
 def _make_forward(modality: str, eps: float, train: bool):
-    """-> ``forward(state, batch, norm_stats) -> (logits, label, mask)`` on
-    the state's device, the model in train or eval mode."""
+    """-> ``forward(state, batch, norm_stats, dropout_rng=None) -> (logits,
+    label, mask)`` on the state's device, the model in train or eval mode."""
     if modality not in MODALITIES:
         raise ValueError(f"unknown modality {modality!r} (have {MODALITIES})")
 
-    def forward(state, batch, norm_stats):
+    def forward(state, batch, norm_stats, dropout_rng=None):
         dev = state.device
         inputs = _forward_inputs(modality, batch, norm_stats, eps, dev)
         state.model.train(train)
-        return state.model(*inputs), _tensor(batch.label, dev), _tensor(batch.mask, dev)
+        kw = {} if dropout_rng is None else {"dropout_rng": dropout_rng}
+        return (state.model(*inputs, **kw), _tensor(batch.label, dev),
+                _tensor(batch.mask, dev))
 
     return forward
 
 
-def make_train_step(modality: str, eps: float = 1e-8):
+def make_train_step(modality: str, eps: float = 1e-8, dropout: bool = False,
+                    dropout_seed: int = 0, mesh=None):
     """-> ``step(state, batch, norm_stats) -> (state, metrics)``: one Adam
     step on the masked BCE; ``state`` is updated in place and returned.
-    Metrics are 0-d tensors on the state's device."""
+    Metrics are 0-d tensors on the state's device. ``dropout``: thread a
+    per-step dropout generator (module docstring). ``mesh``: the rank-local
+    part of the meshed step (module docstring); the state's model and
+    optimizer placed by ``parallel.shard_params`` / ``shard_opt_state``."""
     forward = _make_forward(modality, eps, train=True)
+    spmd = _spmd(mesh)
 
     def train_step(state, batch, norm_stats=None):
-        logits, label, mask = forward(state, batch, norm_stats)
-        loss = masked_sequence_bce(logits, label, mask, eps)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        rng = None
+        if dropout:
+            gen = dropout_generator(dropout_seed, state.step, state.device)
+            b = int(np.shape(batch.mask)[0])
+            rng = (DropoutRNG(gen) if spmd is None else
+                   DropoutRNG(gen, rows=spmd.rows(b), global_batch=b * spmd.n_data))
+        with data_parallel(None if spmd is None else spmd.group):
+            logits, label, mask = forward(state, batch, norm_stats, rng)
+            loss = masked_sequence_bce(logits, label, mask, eps)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if spmd is not None:
+            all_reduce_grads([p for g in state.optimizer.param_groups
+                              for p in g["params"]], spmd.group)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            return state, _metrics(logits.detach(), label, mask, loss.detach(), eps)
+            return state, _metrics(logits.detach(), label, mask, loss.detach(), eps, spmd)
 
     return train_step
 
 
-def make_eval_step(modality: str, eps: float = 1e-8):
+def make_eval_step(modality: str, eps: float = 1e-8, mesh=None):
     """-> ``step(state, batch, norm_stats) -> (metrics, y_hat_soft)``:
-    BatchNorm on running statistics, no state change."""
+    BatchNorm on running statistics, no state change. ``mesh``: this
+    rank's rows in, the global batch's metrics out, the rank's
+    probabilities."""
     forward = _make_forward(modality, eps, train=False)
+    spmd = _spmd(mesh)
 
     @torch.no_grad()
     def eval_step(state, batch, norm_stats=None):
-        logits, label, mask = forward(state, batch, norm_stats)
+        with data_parallel(None if spmd is None else spmd.group):
+            logits, label, mask = forward(state, batch, norm_stats)
         loss = masked_sequence_bce(logits, label, mask, eps)
-        return _metrics(logits, label, mask, loss, eps), torch.sigmoid(logits)
+        return _metrics(logits, label, mask, loss, eps, spmd), torch.sigmoid(logits)
 
     return eval_step
 
 
-def make_predict_step(modality: str, eps: float = 1e-8):
+def make_predict_step(modality: str, eps: float = 1e-8, mesh=None):
     """-> ``step(state, batch, norm_stats) -> y_hat_soft (B, T, y)``: pure
-    inference, no labels needed."""
+    inference, no labels needed. ``mesh``: this rank's rows in and out
+    (the whole-tensor L2 norm of the MCB fusion over the global batch)."""
     forward = _make_forward(modality, eps, train=False)
+    spmd = _spmd(mesh)
 
     @torch.no_grad()
     def predict_step(state, batch, norm_stats=None):
-        return torch.sigmoid(forward(state, batch, norm_stats)[0])
+        with data_parallel(None if spmd is None else spmd.group):
+            return torch.sigmoid(forward(state, batch, norm_stats)[0])
 
     return predict_step

@@ -10,8 +10,15 @@ trainer's epoch before its pass, so that a resumed run does not replay
 the shuffles of the epochs it has trained. With ``prefetch`` (the default,
 as in JAX) each pass's batches go to the state's device through a
 ``data.Prefetcher``. The JAX trainer's ``prewarm=`` (XLA compiles ahead,
-in parallel) has no PyTorch counterpart, and its ``mesh=`` waits for the
-port's ``torch.distributed`` scale-out.
+in parallel) has no PyTorch counterpart.
+
+``mesh=``: data (and tensor) parallel training, one rank a mesh position
+(``parallel``): every rank iterates the same batches (same loader, seed
+and epoch), keeps the rows of its data coordinate on their way to the
+device, and runs the meshed step of ``train.steps``; the state is placed
+by ``parallel.shard_params`` / ``shard_opt_state`` and lives on the rank's
+mesh device. Batch sizes must divide the data axis. Logs are written by
+rank 0 only, and checkpoints hold the full state, written by rank 0.
 """
 
 from __future__ import annotations
@@ -19,7 +26,11 @@ from __future__ import annotations
 import os
 import time
 
+import torch
+
 from ..data import Prefetcher
+from ..data.batching import Batch
+from ..parallel.mesh import shard_batch, shard_opt_state, shard_params
 from .checkpoint import prune_checkpoints, save_checkpoint
 from .steps import make_eval_step, make_train_step
 
@@ -42,29 +53,55 @@ class MetricAccumulator:
         return {k: v / max(self.n, 1) for k, v in self.totals.items()}
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    def index(d):
+        return (torch.cuda.current_device() if d.type == "cuda" and d.index is None
+                else d.index)
+    return a.type == b.type and (a.type == "cpu" or index(a) == index(b))
+
+
 class Trainer:
     def __init__(self, state, modality: str, model_dir: str,
                  norm_stats: dict | None = None, eps: float = 1e-8,
-                 log_interval: int = 1, prefetch: bool = True):
+                 log_interval: int = 1, prefetch: bool = True, mesh=None):
         self.state = state
         self.modality = modality
         self.model_dir = model_dir
         self.norm_stats = norm_stats
         self.log_interval = log_interval
         self.prefetch = prefetch
-        self.train_step = make_train_step(modality, eps)
-        self.eval_step = make_eval_step(modality, eps)
+        self.mesh = mesh
+        self.n_data = 1
+        if mesh is not None:
+            mesh.check_world()
+            if not _same_device(state.device, mesh.local_device):
+                raise ValueError(f"the state is on {state.device}, this rank's mesh "
+                                 f"device is {mesh.local_device}")
+            self.n_data = mesh.shape["data"]
+            shard_params(mesh, state.model)
+            shard_opt_state(mesh, state.optimizer)
+        self.writer = mesh is None or mesh.rank == 0
+        self.train_step = make_train_step(modality, eps, mesh=mesh)
+        self.eval_step = make_eval_step(modality, eps, mesh=mesh)
         os.makedirs(model_dir, exist_ok=True)
         self.batch_log = os.path.join(model_dir, "output_batch.log")
         self.epoch_log = os.path.join(model_dir, "output_epoch.log")
 
     def _log(self, path: str, line: str):
+        if not self.writer:
+            return
         with open(path, "a") as f:
             f.write(line + "\n")
 
+    def _rows(self, batch: Batch) -> Batch:
+        """A host batch -> this rank's rows (the whole batch unmeshed)."""
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
+
     def _iter(self, batches):
-        return (Prefetcher(batches, device=self.state.device) if self.prefetch
-                else iter(batches))
+        if self.prefetch:
+            return Prefetcher(batches, device=self.state.device,
+                              put_fn=None if self.mesh is None else self._rows)
+        return (self._rows(b) for b in batches)
 
     def train_epoch(self, batches, epoch: int) -> dict:
         if hasattr(batches, "epoch"):
@@ -78,7 +115,7 @@ class Trainer:
             self.state, metrics = self.train_step(self.state, batch, self.norm_stats)
             m = _to_float(metrics)
             acc.add(m)
-            seen += batch.batch_size
+            seen += batch.batch_size * self.n_data
             if batch_idx % self.log_interval == 0:
                 self._log(
                     self.batch_log,
@@ -126,8 +163,9 @@ class Trainer:
 
             if epoch % save_every == 0:
                 save_checkpoint(self.model_dir, self.state, self.norm_stats,
-                                epoch=epoch, valid_loss=valid_m.get("loss", 0.0))
-                if keep_checkpoints:
+                                epoch=epoch, valid_loss=valid_m.get("loss", 0.0),
+                                mesh=self.mesh)
+                if keep_checkpoints and self.writer:
                     prune_checkpoints(self.model_dir, keep_latest=keep_checkpoints)
             last = {"train": train_m, "valid": valid_m, "epoch": epoch}
         return last

@@ -179,6 +179,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
     the loss finite, ms/step, x real time, peak memory, the stage split
     (encoder forward, LSTM forward, head and loss, backward, optimizer) and
     one {"profile": "train/waveform", ...} line;
+17a. scale-out on the one card (the mesh phase): (a) an NCCL process group
+    of world size 1 and a 1 x 1 mesh, Trainer(mesh=) taking phase 8's
+    full-width AV train step, bit for bit against the unmeshed step, 2 + 2
+    persistent K1d / K1e; (b) two gloo ranks on the one card (NCCL refuses
+    two ranks on one device), spawned after the kernels are built: the
+    same step at data 2 (B=8 a rank) and at model 2 (the (1024, 4096)
+    w_ih / w_hh column-sharded, gathered for the kernels), each against
+    the single-process step (loss within 1e-5, every gradient within 1e-3
+    in relative L2), each rank's K1d / K1e launches by the route
+    persistent_plan picks for its rows, a checkpoint saved by rank 0 and
+    restored bit for bit on both; (c) MultiStreamAVVAD with the static-int8
+    tower sharded over ["cuda:0"] * 2, TICKS ticks of the streaming data,
+    every stream within 1e-6 of the unsharded server, K3 2 and K2 16 a
+    tick; (d) evaluate_split(mesh=) of the int8-tower model on two gloo
+    ranks over 16 in-script test utterances, every prediction within 1e-4
+    of the unmeshed run, K3 1, K2 8 and K1a 2 a batch and a rank. One
+    {"mesh": ...} line each, with ms, peak memory and launches; two ranks
+    on one card time-slice it, so these times are no scaling figure;
 18. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
@@ -2830,6 +2848,465 @@ def raw_train_phase() -> None:
                       "stage_ms": stage_ms, **no_stem(profile_step(step, state, batch))}))
 
 
+# --- scale-out: the mesh phase ----------------------------------------------
+
+MESH_DIR = BUILD / "mesh"
+MESH_RANKS = 2  # gloo ranks on the one card (NCCL refuses two on one device)
+MESH_SPAWN_S = 420
+MESH_THREADS = 4  # CPU threads a rank: the card's machine has 8 cores
+MESH_UTTS = CORPUS_SPLITS["test"]  # the corpus phase's in-script test split
+MESH_EVAL_B = CORPUS_EVAL_B
+MESH_EVAL_TOL = 1e-4
+MESH_SERVE_TOL = 1e-6  # fp32 float parts
+# bf16 float parts: read 3.87e-6 on the card (a shard's GEMMs see 16 rows,
+# not 32, and a changed fp32 rounding can flip a bf16 rounding of the
+# carried state); the bound keeps a margin of ten over that reading
+MESH_SERVE_BF16_TOL = 5e-5
+MESH_DROPOUT = 0.3  # the dropout rate of the mesh phase's dropout steps
+
+
+def mesh_av_model(dropout_rate: float = 0.0):
+    """The full-width fp32 AV train model of phase 8 (MCB 1024, 2 x LSTM
+    1024), from its seed."""
+    from avvad_tpu_torch.models import AVVAD
+
+    return AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                 use_kernel_lstm=True, dropout_rate=dropout_rate, seed=0)
+
+
+def mesh_int8_model(dtype=torch.bfloat16):
+    """The int8-tower serving model of phase 6 (its scales loaded from the
+    parent's calibrated copy); ``dtype`` of its float parts."""
+    from avvad_tpu_torch.models import AVVAD
+
+    return AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                 dtype=dtype, use_kernel_lstm=True, tower_int8=True,
+                 tower_quant_mode="static", tower_pallas=True, seed=0)
+
+
+def nonzero_counts() -> dict:
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def train_launches(b: int) -> tuple[dict, str]:
+    """The K1d / K1e launches of one AV train step at B=b, T=T, H=H, by the
+    route ``persistent_plan`` picks -> (expected counts, route)."""
+    from avvad_tpu_torch.ops import lstm_fused
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if lstm_fused.persistent_plan(b, H, sms) is not None:
+        return {"fwd_train_persist": 2, "bwd_persist": 2}, "persistent"
+    return {"fwd_train": 2 * T, "bwd": 2 * (T + 1)}, "per-step"
+
+
+def mesh_nccl_phase() -> None:
+    """(a) NCCL, world size 1, mesh 1 x 1: Trainer(mesh=) takes one
+    full-width AV train step (phase 8's model and batch); the updated
+    parameters and BatchNorm statistics equal the unmeshed step's bit for
+    bit (both on cuDNN's deterministic algorithms). Then the same step with
+    dropout (``mesh_dropout``)."""
+    import torch.distributed as dist
+
+    from avvad_tpu_torch.parallel import initialize_multihost, make_mesh
+    from avvad_tpu_torch.parallel.distributed import free_port
+    from avvad_tpu_torch.train import Trainer, create_train_state, make_train_step
+
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device="cuda:0")
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(1, 1, devices=["cuda:0"])
+        batch = train_batch(T, TRAIN_B, "av", seed=8)
+        ref = create_train_state(mesh_av_model(), learning_rate=1e-4, freeze_video_trunk=True)
+        make_train_step("av")(ref, batch)
+        state = create_train_state(mesh_av_model(), learning_rate=1e-4,
+                                   freeze_video_trunk=True, device="cuda:0")
+        trainer = Trainer(state, "av", str(MESH_DIR / "nccl"), mesh=mesh)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_epoch([batch], epoch=1)
+        torch.cuda.synchronize()
+        counts = nonzero_counts()
+        expect, route = train_launches(TRAIN_B)
+        got, want = state.model.state_dict(), ref.model.state_dict()
+        unequal = [k for k in want if not torch.equal(got[k], want[k])]
+        del ref
+        torch.cuda.empty_cache()
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        line = {"mesh": "a/nccl_world1", "backend": dist.get_backend(), "axes": [1, 1],
+                "b": TRAIN_B, "t": T, "launches": counts, "k1de_route": route,
+                "bit_equal": not unequal, "tensors_compared": len(want),
+                "ms": min(reps), "ms_reps": reps,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, state
+        torch.cuda.empty_cache()
+        line["dropout"] = mesh_dropout(mesh, batch)
+        print(json.dumps(line))
+        if unequal or counts != expect or not line["dropout"]["bit_equal"]:
+            raise RuntimeError(f"mesh (a): unequal {unequal[:5]}, launches {counts} "
+                               f"against {expect}, dropout {line['dropout']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+
+
+def mesh_dropout(mesh, batch) -> dict:
+    """(a) with dropout at MESH_DROPOUT after the LSTM stack: the meshed
+    step (world 1) against the unmeshed one, bit for bit (the masks drawn
+    on the card from the same (seed, step)); the step's ms against the
+    step without dropout in the same call, and the draw of the global
+    batch's mask alone (CUDA events)."""
+    from avvad_tpu_torch.models.vad_nets import DropoutRNG, dropout_generator
+    from avvad_tpu_torch.parallel import shard_opt_state, shard_params
+    from avvad_tpu_torch.train import create_train_state, make_train_step
+
+    ms, states = {}, {}
+    for label, rate, m in (("no_dropout", 0.0, None), ("unmeshed", MESH_DROPOUT, None),
+                           ("meshed", MESH_DROPOUT, mesh)):
+        state = create_train_state(mesh_av_model(rate), learning_rate=1e-4,
+                                   freeze_video_trunk=True, device="cuda:0")
+        if m is not None:
+            shard_params(m, state.model)
+            shard_opt_state(m, state.optimizer)
+        step = make_train_step("av", dropout=rate > 0, dropout_seed=11, mesh=m)
+        step(state, batch)
+        states[label] = {k: v.clone() for k, v in state.model.state_dict().items()}
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        ms[label] = min(reps)
+        del state, step
+        torch.cuda.empty_cache()
+    got, want = states["meshed"], states["unmeshed"]
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    shape = (TRAIN_B, T, H)  # the dropout site: the LSTM stack's output
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    draws = []
+    for k in range(6):
+        rng = DropoutRNG(dropout_generator(11, k, "cuda:0"))
+        start.record()
+        keep = rng.keep(shape, 1.0 - MESH_DROPOUT)
+        end.record()
+        torch.cuda.synchronize()
+        draws.append(start.elapsed_time(end))
+    return {"rate": MESH_DROPOUT, "bit_equal": not unequal, "tensors_compared": len(want),
+            "kept_share": keep.float().mean().item(), "draw_entries": int(np.prod(shape)),
+            "draw_ms": min(draws[1:]), "step_ms": ms["meshed"],
+            "step_ms_unmeshed": ms["unmeshed"], "step_ms_no_dropout": ms["no_dropout"]}
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
+
+
+def mesh_rank(out_dir: str) -> dict:
+    """(b) One of two gloo ranks on the one card: the full-width AV train
+    step at data 2 (B=8 a rank), at model 2 (the (1024, 4096) w_ih /
+    w_hh column-sharded, B=16 on both ranks) and at data 2 with dropout
+    (each rank keeps its rows of the global batch's mask), each against
+    the single-process step on the global batch (rank 0 runs it), with
+    the rank's K1d / K1e launches and a checkpoint round trip under the
+    mesh (not repeated for dropout)."""
+    import torch.distributed as dist
+
+    from avvad_tpu_torch.parallel import (initialize_multihost, make_mesh, shard_batch,
+                                          shard_opt_state, shard_params)
+    from avvad_tpu_torch.parallel.mesh import (full_optimizer_state, full_state_dict,
+                                               gather_columns, is_sharded, unsharded_name)
+    from avvad_tpu_torch.train import (create_train_state, make_train_step,
+                                       restore_checkpoint, save_checkpoint)
+
+    initialize_multihost(backend="gloo")
+    rank = dist.get_rank()
+    batch = train_batch(T, TRAIN_B, "av", seed=8)
+    refs = {}
+    if rank == 0:
+        for rate in (0.0, MESH_DROPOUT):
+            ref_state = create_train_state(mesh_av_model(rate), learning_rate=1e-4,
+                                           freeze_video_trunk=True, device="cuda:0")
+            _, m = make_train_step("av", dropout=rate > 0, dropout_seed=11)(ref_state, batch)
+            refs[rate] = ({n: p.grad for n, p in ref_state.model.named_parameters()
+                           if p.grad is not None}, m["loss"].item())
+            del ref_state
+    out = {"rank": rank}
+    for label, n_data, n_model, rate in (("data2", 2, 1, 0.0), ("model2", 1, 2, 0.0),
+                                         ("data2_dropout", 2, 1, MESH_DROPOUT)):
+        ref = refs.get(rate)
+        mesh = make_mesh(n_data, n_model, devices=["cuda:0"] * MESH_RANKS)
+        state = create_train_state(mesh_av_model(rate), learning_rate=1e-4,
+                                   freeze_video_trunk=True, device="cuda:0")
+        shard_params(mesh, state.model)
+        shard_opt_state(mesh, state.optimizer)
+        step = make_train_step("av", dropout=rate > 0, dropout_seed=11, mesh=mesh)
+        local = shard_batch(mesh, batch)
+        expect, route = train_launches(local.audio.shape[0])
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        counts = nonzero_counts()
+        grads = {}
+        for n, p in state.model.named_parameters():
+            if p.grad is not None:
+                grads[unsharded_name(n)] = (gather_columns(p.grad, mesh.group("model"),
+                                                           p.tp_shards)
+                                            if is_sharded(p) else p.grad)
+        res = {"axes": [n_data, n_model], "b_rank": int(local.audio.shape[0]), "dropout": rate,
+               "k1de_route": route, "launches": counts, "launches_ok": counts == expect,
+               "loss": m["loss"].item(), "first_step_ms": first_ms,
+               "sharded": sorted(unsharded_name(n) for n, p in state.model.named_parameters()
+                                 if is_sharded(p))}
+        if ref is not None:
+            res["loss_rel"] = abs(res["loss"] - ref[1]) / abs(ref[1])
+            res["grad_rel_l2"] = max(_rel_l2(grads[k], ref[0][k]) for k in ref[0])
+            res["grads_compared"] = len(ref[0]) if set(grads) == set(ref[0]) else -1
+        reps = []
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, local)
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        res.update(ms=min(reps), ms_reps=reps,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out[label] = res
+        if rate > 0:
+            del state, grads
+            torch.cuda.empty_cache()
+            continue
+        # checkpoint round trip: rank 0 writes the gathered state, every
+        # rank restores it into a fresh sharded state
+        saved = full_state_dict(state.model)
+        saved_opt = full_optimizer_state(state.optimizer, mesh.group("model"))
+        path = save_checkpoint(os.path.join(out_dir, label), state, epoch=1,
+                               valid_loss=res["loss"], mesh=mesh)
+        fresh = create_train_state(mesh_av_model(), learning_rate=1e-4,
+                                   freeze_video_trunk=True, device="cuda:0")
+        shard_params(mesh, fresh.model)
+        shard_opt_state(mesh, fresh.optimizer)
+        restore_checkpoint(path, fresh, mesh=mesh)
+        back = full_state_dict(fresh.model)
+        back_opt = full_optimizer_state(fresh.optimizer, mesh.group("model"))["state"]
+        res["ckpt_bit_equal"] = (set(back) == set(saved)
+                                 and all(torch.equal(back[k], saved[k]) for k in saved)
+                                 and all(torch.equal(back_opt[i][k].cpu(), v.cpu())
+                                         for i, st in saved_opt["state"].items()
+                                         for k, v in st.items()))
+        del state, fresh, grads, saved, saved_opt, back, back_opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_ranks_phase() -> None:
+    """(b) Two gloo ranks on the one card (see ``mesh_rank``): loss within
+    1e-5 and every gradient within 1e-3 in relative L2 of the
+    single-process step (phase 8's gates), 2 + 2 K1d / K1e launches a rank
+    and a step by the route ``persistent_plan`` picks for its rows, the
+    checkpoint bit for bit (without dropout)."""
+    from avvad_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    results = spawn("chip_smoke:mesh_rank", MESH_RANKS, args=[str(MESH_DIR / "ranks")],
+                    timeout_s=MESH_SPAWN_S, threads=MESH_THREADS)
+    wall = time.perf_counter() - t0
+    for label in ("data2", "model2", "data2_dropout"):
+        ranks = [r[label] for r in results]
+        r0 = ranks[0]
+        line = {"mesh": f"b/gloo_2ranks_one_card/{label}", "backend": "gloo",
+                "axes": r0["axes"], "b_per_rank": r0["b_rank"], "t": T,
+                "dropout": r0["dropout"],
+                "k1de_route": r0["k1de_route"],
+                "launches_per_rank": [r["launches"] for r in ranks],
+                "loss_rel": r0["loss_rel"], "grad_rel_l2": r0["grad_rel_l2"],
+                "grads_compared": r0["grads_compared"], "sharded": r0["sharded"],
+                "ckpt_bit_equal": [r.get("ckpt_bit_equal") for r in ranks],
+                "ms": [r["ms"] for r in ranks], "ms_reps": [r["ms_reps"] for r in ranks],
+                "first_step_ms": [r["first_step_ms"] for r in ranks],
+                "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+                "spawn_wall_s": wall}
+        print(json.dumps(line))
+        bad = (not all(r["launches_ok"] and r.get("ckpt_bit_equal", r["dropout"] > 0)
+                       for r in ranks)
+               or r0["loss_rel"] > STEP_LOSS_REL_TOL or r0["grad_rel_l2"] > STEP_GRAD_REL_TOL
+               or r0["grads_compared"] <= 0 or (label == "model2") != bool(r0["sharded"]))
+        if bad:
+            raise RuntimeError(f"mesh (b) {label}: {line}")
+
+
+def mesh_serving_phase(int8_model) -> None:
+    """(c) MultiStreamAVVAD with the static-int8 tower (the streaming
+    phase's wire: span int16 hop_dft, 30 fps uint8), sharded over
+    ["cuda:0"] * 2, against the unsharded server over TICKS ticks of the
+    streaming data, K3 2 and K2 16 a tick; with fp32 float parts (the
+    calibrated weights and scales of phase 6's model) every stream within
+    MESH_SERVE_TOL, with the served bf16 ones within MESH_SERVE_BF16_TOL
+    (see there)."""
+    fp32 = mesh_int8_model(torch.float32)
+    fp32.load_state_dict(int8_model.state_dict())
+    for label, model, tol in (("fp32", fp32.cuda(), MESH_SERVE_TOL),
+                              ("bf16", int8_model, MESH_SERVE_BF16_TOL)):
+        mesh_serving_run(model, label, tol)
+    del fp32
+    torch.cuda.empty_cache()
+
+
+def mesh_serving_run(model, label: str, tol: float) -> None:
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+    from avvad_tpu_torch.parallel import make_mesh
+
+    pcm, video, _ = stream_data()
+    kw = dict(block_frames=BLOCK, video_fps=30.0, video_uint8=True, span_wire=True,
+              hop_dft=True, audio_int16=True)
+    plain = serve.MultiStreamAVVAD(model, STREAMS, **kw)
+    sharded = serve.MultiStreamAVVAD(model, STREAMS,
+                                     mesh=make_mesh(2, 1, devices=["cuda:0"] * 2), **kw)
+    plain.warmup()
+    sharded.warmup()
+    expect = {stem_fused.NHWC_KERNEL_NAME: 2, conv_fused.KERNEL_NAME: 16}
+    err, bad_ticks, ms = 0.0, [], {"sharded": [], "plain": []}
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(TICKS):
+        feed_tick(plain, pcm[k], video[k], False)
+        feed_tick(sharded, pcm[k], video[k], False)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = sharded.tick()
+        ms["sharded"].append(1e3 * (time.perf_counter() - t0))
+        counts = nonzero_counts()
+        if counts != expect:
+            bad_ticks.append((k, counts))
+        t0 = time.perf_counter()
+        want = plain.tick()
+        ms["plain"].append(1e3 * (time.perf_counter() - t0))
+        check_tick(got, f"mesh (c) tick {k}")
+        err = max(err, max(float(np.abs(got[i] - want[i]).max()) for i in want))
+    line = {"mesh": f"c/serving_int8_tower_2shards/{label}", "devices": ["cuda:0", "cuda:0"],
+            "streams": STREAMS, "block_frames": BLOCK, "ticks": TICKS,
+            "launches_per_tick": expect if not bad_ticks else bad_ticks[:3],
+            "max_abs_diff": err, "tol": tol,
+            "ms_per_tick_best": {k: min(v) for k, v in ms.items()},
+            "ms_per_tick_median": {k: float(np.median(v)) for k, v in ms.items()},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(line))
+    if bad_ticks or not err <= tol:
+        raise RuntimeError(f"mesh (c): {line}")
+
+
+def mesh_eval_rank(out_dir: str, weights: str) -> dict:
+    """(d) One of two gloo ranks: ``evaluate_split(mesh=)`` of the int8-tower
+    model (state_quant none) over the in-script test utterances, with the
+    rank's launch counts."""
+    from avvad_tpu_torch.evaluate import evaluate_split
+    from avvad_tpu_torch.parallel import initialize_multihost, make_mesh
+    from avvad_tpu_torch.train.state import TrainState
+
+    initialize_multihost(backend="gloo")
+    model = mesh_int8_model()
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    model.set_lstm_state_quant("none")
+    state = TrainState(model.cuda().eval(), None, torch.device("cuda:0"))
+    mesh = make_mesh(2, 1, devices=["cuda:0"] * MESH_RANKS)
+    src = SyntheticCorpus("test", MESH_UTTS, seed=0)
+    # a first pass warms the process (library handles, the tower's fold)
+    evaluate_split(state, src, "av", out_dir + "_warm", batch_size=MESH_EVAL_B,
+                   verbose=False, mesh=mesh)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    report = evaluate_split(state, src, "av", out_dir, batch_size=MESH_EVAL_B,
+                            verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"report": report, "launches": nonzero_counts(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def mesh_evaluate_phase(int8_model) -> None:
+    """(d) ``evaluate_split(mesh=)`` over the in-script corpus on two gloo
+    ranks (data 2 on the one card) against the unmeshed run: every soft
+    prediction within 1e-4, the same files, the launches of each rank (K3
+    1, K2 8 and K1a 2 a batch)."""
+    from avvad_tpu_torch.evaluate import evaluate_split
+    from avvad_tpu_torch.parallel import spawn
+    from avvad_tpu_torch.train.state import TrainState
+
+    saved_sq = int8_model.lstm_merged.layer_0.state_quant
+    int8_model.set_lstm_state_quant("none")
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    weights = str(MESH_DIR / "int8_model.pt")
+    torch.save(int8_model.state_dict(), weights)
+    single, meshed = MESH_DIR / "eval_single", MESH_DIR / "eval_meshed"
+    src = SyntheticCorpus("test", MESH_UTTS, seed=0)
+    reset_counts()
+    ref = evaluate_split(TrainState(int8_model, None, torch.device("cuda")), src, "av",
+                         str(single), batch_size=MESH_EVAL_B, verbose=False)
+    torch.cuda.synchronize()
+    ref_counts = nonzero_counts()
+    int8_model.set_lstm_state_quant(saved_sq)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_eval_rank", MESH_RANKS, args=[str(meshed), weights],
+                  timeout_s=MESH_SPAWN_S, threads=MESH_THREADS)
+    wall = time.perf_counter() - t0
+    want = sorted(p.relative_to(single) for p in single.rglob("*_soft.npy"))
+    got = sorted(p.relative_to(meshed) for p in meshed.rglob("*_soft.npy"))
+    err = max(float(np.abs(np.load(meshed / r) - np.load(single / r)).max()) for r in want)
+    n_batches = -(-MESH_UTTS // MESH_EVAL_B)
+    line = {"mesh": "d/evaluate_split_2ranks_one_card", "backend": "gloo", "axes": [2, 1],
+            "utterances": MESH_UTTS, "batch_size": MESH_EVAL_B, "batches": n_batches,
+            "files_equal": got == want and len(want) == MESH_UTTS,
+            "max_abs_diff": err, "tol": MESH_EVAL_TOL,
+            "launches_unmeshed": ref_counts,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "ms": {"unmeshed": 1e3 * ref["elapsed_s"],
+                   "meshed": 1e3 * ranks[0]["report"]["elapsed_s"]},
+            "rt_factor": {"unmeshed": ref["rt_factor"],
+                          "meshed": ranks[0]["report"]["rt_factor"]},
+            "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+            "spawn_wall_s": wall}
+    print(json.dumps(line))
+    from avvad_tpu_torch.ops import conv_fused, stem_fused
+
+    for r in ranks:
+        c = r["launches"]
+        k1 = sum(v for k, v in c.items() if k in ("none", "none_persist"))
+        if (c.get(stem_fused.NHWC_KERNEL_NAME) != n_batches
+                or c.get(conv_fused.KERNEL_NAME) != 8 * n_batches or k1 != 2 * n_batches
+                or r["report"]["n_utterances"] != MESH_UTTS):
+            raise RuntimeError(f"mesh (d): rank launches {c}, report {r['report']}")
+    if not line["files_equal"] or not err <= MESH_EVAL_TOL:
+        raise RuntimeError(f"mesh (d): {line}")
+
+
+def mesh_phase(int8_model) -> None:
+    """Scale-out on the one card: (a) NCCL world 1, (b) two gloo ranks'
+    train steps, (c) the sharded AV server, (d) the sharded evaluate_split;
+    one {"mesh": ...} line each. The kernels are built once, by this
+    process, before the ranks start (``_build.build`` at the top of main):
+    two ranks would each run nvcc. Two ranks on one card time-slice it, so
+    their times are no scaling figure."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_nccl_phase()
+    torch.cuda.empty_cache()
+    mesh_ranks_phase()
+    mesh_serving_phase(int8_model)
+    torch.cuda.empty_cache()
+    mesh_evaluate_phase(int8_model)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2872,7 +3349,7 @@ def main() -> None:
     frontend_phase()
     streaming_phase(float_model, int8_model)
     server_phase(int8_model)
-    del float_model, int8_model
+    del float_model
     torch.cuda.empty_cache()
     # the video-only family and the trunk's backward
     state = train_path(rows, "video")
@@ -2890,6 +3367,9 @@ def main() -> None:
     raw_serving_phase()
     torch.cuda.empty_cache()
     raw_train_phase()
+    torch.cuda.empty_cache()
+    mesh_phase(int8_model)
+    del int8_model
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",

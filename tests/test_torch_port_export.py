@@ -542,20 +542,6 @@ def test_loaded_artifact_runs_with_tf32_off(tmp_path, audio):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def test_mesh_is_not_ported_yet(tmp_path, audio):
-    _, _, port = audio
-    live = serve.MultiStreamVAD(port, n_streams=2, block_frames=4, device="cpu")
-    p = str(tmp_path / "s.avvadx")
-    export_multistream_server(live, p)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        load_multistream_server(p, mesh=object())
-    art = ServingArtifact.load(p)
-    art.meta["multistream"]["mesh_data"] = 8
-    art.save(p)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        load_multistream_server(p)
-
-
 class _Facts:
     """What a server with a step_override may read of its model."""
     lstm_hidden_size, lstm_layers = H, 2

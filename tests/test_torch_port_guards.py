@@ -329,3 +329,27 @@ def test_artifact_server_raises_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_multistream_server(path)
+
+
+def test_import_guard_covers_the_parallel_modules():
+    """Scale-out: parallel/ (and the modules it changed) are in the guard's
+    walk, so neither JAX nor an optional package is imported there."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f"avvad_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "distributed", "sync", "dryrun")} <= names
+    for m in ("mesh", "distributed", "sync", "dryrun"):
+        mods = set(_module_level_imports(ROOT / f"avvad_tpu_torch/parallel/{m}.py"))
+        assert not {x.split(".")[0] for x in mods} & {*FORBIDDEN, *ABSENT_ON_CARD}
+
+
+def test_sharded_server_raises_without_a_card(monkeypatch):
+    """A serving mesh over cards needs the cards: no quiet CPU."""
+    from avvad_tpu_torch import serve
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = make_mesh(n_data=2, devices=["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.MultiStreamVAD(AudioVAD(lstm_hidden_size=8, lstm_layers=1), 2,
+                             block_frames=4, mesh=mesh)

@@ -646,10 +646,3 @@ def test_load_pretrained_trunk_into_int8_tower_leaves_scales_alone(tmp_path):
     narrow.tower.features.block_names.remove("layer4_1")
     with pytest.raises(ValueError):
         ckpt.load_pretrained_trunk(str(tmp_path), narrow)
-
-
-def test_dropout_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        AudioVAD(lstm_hidden_size=8, lstm_layers=1, dropout_rate=0.5)
-    with pytest.raises(NotImplementedError):
-        AVVAD(lstm_hidden_size=8, lstm_layers=1, dropout_rate=0.05)
