@@ -29,8 +29,9 @@ Training options: dropout on the three VAD models and the auxiliary
 losses of ``models.losses``.
 
 The package imports torch, numpy, scipy and the standard library at module
-level; ``h5py`` and ``yaml`` only inside the functions that read or write
-HDF5 or YAML. The JAX package ``avvad_tpu`` is its reference and is never
+level, ``yaml`` only inside the functions that read or write YAML, and
+never ``h5py``: HDF5 goes through its own ``hdf5`` (no counterpart in the
+JAX package). The JAX package ``avvad_tpu`` is its reference and is never
 imported here. Entry points run on ``cuda`` unless given ``device="cpu"``.
 """
 

@@ -4,19 +4,22 @@ Covers the reference's create_video_train_files_upsampled.py and
 create_audio_train_files.py (L5): decode+upsample lip video, generate
 VAD/IBM labels from clean speech, copy noisy wavs into the processed tree,
 and accumulate train-set normalization statistics — writing the same h5
-artifact formats (X (67,67,T) / Y (y_dim,T), lzf compression; statistics
-with X_train_mean/std) so artifacts interoperate with the reference.
+datasets (X (67,67,T) / Y (y_dim,T); statistics with X_train_mean/std)
+so artifacts interoperate with the reference. The JAX builders compress
+with LZF in per-frame chunks; the port's own ``hdf5`` writes the same
+arrays contiguous and uncompressed (other bytes, the same datasets).
 
 Differences by design: no ffmpeg round trip (the fps-filter schedule is
 computed exactly; see processing.video), process-pool fan-out is built in,
 and every step is a pure function usable from tests.
 
-A copy of avvad_tpu/builders.py; ``h5py`` is imported inside the functions
-that write or read HDF5, so the module imports without it.
+A copy of avvad_tpu/builders.py, writing and reading HDF5 through the
+port's own ``hdf5``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor
@@ -25,6 +28,7 @@ from shutil import copyfile
 
 import numpy as np
 
+from . import hdf5
 from .config import LabelConfig, STFTConfig, VideoConfig
 from .data.statistics import save_statistics, welford_merge
 from .datasets import ntcd_timit as catalog
@@ -35,15 +39,11 @@ from .processing.video import decode_and_upsample
 
 
 def _write_h5(path: str, key: str, data: np.ndarray) -> None:
-    import h5py
-
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if os.path.exists(path):
         os.remove(path)
-    with h5py.File(path, "w") as f:
-        f.create_dataset(key, data=np.asarray(data, dtype=np.float32),
-                         compression="lzf",
-                         chunks=(data.shape[:-1] + (1,)) if data.ndim > 1 else None)
+    with hdf5.File(path, "w") as f:
+        f.create_dataset(key, data=np.asarray(data, dtype=np.float32))
 
 
 def make_label(x: np.ndarray, fs: int, stft_cfg: STFTConfig,
@@ -156,12 +156,38 @@ def build_noisy_utterance(args):
     return (float(spec.shape[-1]), spec.sum(axis=-1), (spec ** 2).sum(axis=-1))
 
 
+_POOL: ProcessPoolExecutor | None = None
+
+
+def _spawn_pool(max_workers) -> ProcessPoolExecutor:
+    # spawned, not forked: the caller may hold CUDA state and threads
+    return ProcessPoolExecutor(max_workers=max_workers,
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+@contextlib.contextmanager
+def worker_pool(max_workers):
+    """One pool of spawned workers for every split built inside the block
+    (a spawned worker imports torch and the package, seconds each, which a
+    pool a split would pay again for each of its three maps)."""
+    global _POOL
+    if max_workers == 0 or _POOL is not None:
+        yield
+        return
+    with _spawn_pool(max_workers) as pool:
+        _POOL = pool
+        try:
+            yield
+        finally:
+            _POOL = None
+
+
 def _run_pool(fn, args_list, max_workers):
     if max_workers == 0:  # serial (tests / small builds)
         return [fn(a) for a in args_list]
-    # spawned, not forked: the caller may hold CUDA state and threads
-    with ProcessPoolExecutor(max_workers=max_workers,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
+    if _POOL is not None:
+        return list(_POOL.map(fn, args_list))
+    with _spawn_pool(max_workers) as pool:
         return list(pool.map(fn, args_list))
 
 
@@ -193,8 +219,6 @@ def build_frame_store(cfg: BuildConfig, dataset_type: str,
     store (`X_<split>` (513, N), `Y_<split>` (y_dim, N)) — the storage
     scheme consumed by the legacy framewise/windowed sources
     (data/sources.py FrameStore family). Returns total frames packed."""
-    import h5py
-
     pairs = catalog.proc_noisy_clean_pair_dict(
         cfg.processed_dir, dataset_type, cfg.dataset_size, cfg.label.kind,
         upsampled=cfg.upsampled_suffix)
@@ -207,7 +231,7 @@ def build_frame_store(cfg: BuildConfig, dataset_type: str,
                  center=cfg.stft.center, pad_mode=cfg.stft.pad_mode,
                  pad_at_end=cfg.stft.pad_at_end),
             eps=cfg.stft.eps)
-        with h5py.File(os.path.join(cfg.processed_dir, label_rel), "r") as f:
+        with hdf5.File(os.path.join(cfg.processed_dir, label_rel), "r") as f:
             label = f["Y"][:]
         t = min(spec.shape[-1], label.shape[-1])
         xs.append(spec[:, :t])
@@ -215,9 +239,9 @@ def build_frame_store(cfg: BuildConfig, dataset_type: str,
     x_all = np.concatenate(xs, axis=-1) if xs else np.zeros((513, 0), np.float32)
     y_all = np.concatenate(ys, axis=-1) if ys else np.zeros((1, 0), np.float32)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    with h5py.File(out_path, "w") as f:
-        f.create_dataset(f"X_{dataset_type}", data=x_all, compression="lzf")
-        f.create_dataset(f"Y_{dataset_type}", data=y_all, compression="lzf")
+    with hdf5.File(out_path, "w") as f:
+        f.create_dataset(f"X_{dataset_type}", data=x_all)
+        f.create_dataset(f"Y_{dataset_type}", data=y_all)
     return int(x_all.shape[-1])
 
 

@@ -6,6 +6,8 @@
 // (torchaudio/librosa); here the inner loops are C++ behind a minimal C ABI
 // consumed via ctypes (no pybind11 dependency).
 //
+// Also LZF decompression for the port's HDF5 reader (avvad_tpu_torch/hdf5.py).
+//
 // Formats: RIFF/WAVE with PCM 8/16/32-bit and IEEE float32, arbitrary
 // channel count (channel 0 is returned, matching the pipeline's
 // convention). Scaling matches avvad_tpu.processing.audio_io: int16/32 map
@@ -195,6 +197,46 @@ int64_t frame_energy_vad(const float* x, int64_t n, int32_t nfft, int32_t hop,
   for (int64_t t = 0; t < n_frames; ++t)
     out[t] = power[(size_t)t] > thr ? 1.0f : 0.0f;
   return n_frames;
+}
+
+// LZF decompression (liblzf's format, HDF5 filter 32000 as h5py writes
+// it): a control byte c < 32 starts a literal run of c + 1 bytes; otherwise
+// a back reference of length (c >> 5) + 2 (a length of 7 takes one more
+// byte), to offset ((c & 0x1f) << 8) + next byte + 1 behind the output
+// position, copied byte by byte (it may overlap its own output). Returns
+// the number of bytes written, -1 on corrupt input, -2 if the output would
+// exceed out_len.
+int64_t lzf_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
+                       int64_t out_len) {
+  const uint8_t* ip = in;
+  const uint8_t* const in_end = in + in_len;
+  uint8_t* op = out;
+  uint8_t* const out_end = out + out_len;
+  while (ip < in_end) {
+    uint32_t ctrl = *ip++;
+    if (ctrl < (1u << 5)) {
+      ctrl++;
+      if (op + ctrl > out_end) return -2;
+      if (ip + ctrl > in_end) return -1;
+      std::memcpy(op, ip, ctrl);
+      op += ctrl;
+      ip += ctrl;
+    } else {
+      uint32_t len = ctrl >> 5;
+      const uint8_t* ref = op - ((ctrl & 0x1f) << 8) - 1;
+      if (ip >= in_end) return -1;
+      if (len == 7) {
+        len += *ip++;
+        if (ip >= in_end) return -1;
+      }
+      ref -= *ip++;
+      len += 2;
+      if (op + len > out_end) return -2;
+      if (ref < out) return -1;
+      for (uint32_t k = 0; k < len; ++k) *op++ = *ref++;
+    }
+  }
+  return op - out;
 }
 
 // ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Replaces the reference's torch DataLoader(num_workers=16, pin_memory)
 (the reference's scripts/train_AV_net.py:141-146) with a thread-pooled host
-loader (h5py/numpy release the GIL in the hot paths) and an explicit
+loader (file reads, the LZF decoder and numpy release the GIL) and an explicit
 double-buffered device prefetcher, so host IO/DSP overlaps the card's
 compute. ``DataLoader`` is the JAX package's, line for line (its numpy
 shuffle too, so both packages plan the same batches); ``Prefetcher`` moves

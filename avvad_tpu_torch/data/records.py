@@ -1,5 +1,5 @@
 """Per-utterance feature loading (host-side numpy; a copy of
-avvad_tpu/data/records.py, ``h5py`` imported inside the readers).
+avvad_tpu/data/records.py, HDF5 read by the port's own ``hdf5``).
 
 One function per modality; all return TIME-MAJOR arrays — (T, ...) — the
 layout the models take (features last), unlike the reference's
@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 
+from .. import hdf5
 from ..config import STFTConfig
 from ..processing.audio_io import peak_normalize, read_wav
 from ..processing.stft import log_power_spectrogram, stft
@@ -50,18 +51,14 @@ def load_audio_logspec(path: str, stft_cfg: STFTConfig = STFTConfig()) -> np.nda
 
 def load_video(path: str) -> np.ndarray:
     """Processed lip video h5 ("X", (67, 67, T)) -> (T, 67, 67) float32."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         x = f["X"][:]
     return np.ascontiguousarray(np.moveaxis(x, -1, 0).astype(np.float32))
 
 
 def load_label(path: str) -> np.ndarray:
     """Label h5 ("Y", (y_dim, T)) -> (T, y_dim) float32."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         y = f["Y"][:]
     return np.ascontiguousarray(y.T.astype(np.float32))
 

@@ -18,8 +18,8 @@ Legacy fixed-window sources over packed h5 frame stores:
 Each item is a dict of time-major numpy arrays plus metadata; batching
 lives in `avvad_tpu_torch.data.batching`.
 
-A copy of avvad_tpu/data/sources.py; ``h5py`` is imported inside the
-methods that open an HDF5 file. The two waveform sources are data only:
+A copy of avvad_tpu/data/sources.py; HDF5 is read by the port's own
+``hdf5``. The two waveform sources are data only:
 the port does not have the model they feed (``RawAudioVAD``) yet.
 """
 
@@ -30,6 +30,7 @@ import os
 from dataclasses import dataclass, field
 import numpy as np
 
+from .. import hdf5
 from ..config import STFTConfig
 from ..datasets import ntcd_timit as catalog
 from ..processing.video import decode_dct_frames, read_mat_dct
@@ -207,9 +208,7 @@ class VideoSequenceSource:
 
     def probe_length(self, i: int) -> int:
         """Frame count from h5 metadata only (no data read)."""
-        import h5py
-
-        with h5py.File(self.root + self.video_paths[i], "r") as f:
+        with hdf5.File(self.root + self.video_paths[i], "r") as f:
             return int(f["X"].shape[-1])
 
     def __getitem__(self, i: int) -> dict:
@@ -224,19 +223,15 @@ class FrameStore:
     datasets — the storage scheme of the legacy framewise datasets."""
 
     def __init__(self, path: str, dataset_type: str):
-        import h5py
-
         self.path = path
         self.dataset_type = dataset_type
-        self._f = None  # an open h5py.File, once _handles() has run
-        with h5py.File(path, "r") as f:
+        self._f = None  # an open hdf5.File, once _handles() has run
+        with hdf5.File(path, "r") as f:
             self.n_frames = f["X_" + dataset_type].shape[-1]
 
     def _handles(self):
         if self._f is None:
-            import h5py
-
-            self._f = h5py.File(self.path, "r")
+            self._f = hdf5.File(self.path, "r")
         return self._f["X_" + self.dataset_type], self._f["Y_" + self.dataset_type]
 
     def close(self):

@@ -1,5 +1,6 @@
 """Train-set normalization statistics (a copy of
-avvad_tpu/data/statistics.py, ``h5py`` imported inside the readers).
+avvad_tpu/data/statistics.py, HDF5 read and written by the port's own
+``hdf5``).
 
 The reference accumulates per-frequency-bin (n, sum, sum^2) across workers
 and saves empirical mean/std to `*_statistics.h5` with keys
@@ -14,6 +15,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from .. import hdf5
 
 
 def welford_merge(stats: list[tuple[float, np.ndarray, np.ndarray]]):
@@ -33,10 +36,8 @@ def save_statistics(path: str, mean: np.ndarray, std: np.ndarray,
                     dataset_type: str = "train") -> None:
     mean = np.atleast_1d(np.asarray(mean, dtype=np.float32))
     std = np.atleast_1d(np.asarray(std, dtype=np.float32))
-    import h5py
-
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.create_dataset(f"X_{dataset_type}_mean", data=mean[..., None])
         f.create_dataset(f"X_{dataset_type}_std", data=std[..., None])
 
@@ -44,9 +45,7 @@ def save_statistics(path: str, mean: np.ndarray, std: np.ndarray,
 def load_statistics(path: str, dataset_type: str = "train"):
     """-> (mean, std), each (dim, 1) float32 — the shape consumers broadcast
     against the feature axis via `.T` (train_AV_net.py:286-291)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         mean = f[f"X_{dataset_type}_mean"][:]
         std = f[f"X_{dataset_type}_std"][:]
     return mean.astype(np.float32), std.astype(np.float32)

@@ -77,7 +77,7 @@ def score_split(source, processed_dir: str, classif_data_dir: str,
 
     `max_workers` > 0 fans the per-utterance scoring out over a thread
     pool (the reference used a ProcessPoolExecutor here,
-    run_metrics_dnn_classif.py:341-342; h5py/numpy release the GIL)."""
+    run_metrics_dnn_classif.py:341-342; file reads and numpy release the GIL)."""
     args = [(processed_dir, classif_data_dir, source.rel_path(i),
              source.label_rel_path(i)) for i in range(len(source))]
     if max_workers:

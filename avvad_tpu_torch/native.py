@@ -1,9 +1,11 @@
 """Host-side C++ core for the streaming servers and WAV reading (port of
 avvad_tpu/native/__init__.py): ``build``, ``load``, ``available``,
-``wav_info``, ``read_wav``, ``frame_energy_vad`` and ``StreamHub``.
+``wav_info``, ``read_wav``, ``frame_energy_vad``, ``lzf_decompress`` (the
+HDF5 reader's LZF chunks) and ``StreamHub``.
 
 ``csrc/avvad_io.cpp`` is the port's own copy of the JAX package's
-``native/avvad_io.cpp``. It is built at first use with ``g++`` and the
+``native/avvad_io.cpp``, plus an LZF decoder (``lzf_decompress``) for the
+port's HDF5 reader. It is built at first use with ``g++`` and the
 flags of ``native/Makefile`` into ``build/avvad_tpu_torch/libavvad_io.so``,
 rebuilt when the source is newer, and bound with ``ctypes``. Nothing is
 built at import time.
@@ -44,6 +46,7 @@ SIGNATURES = {
     "peak_normalize": (None, [_F, _I64]),
     "frame_energy_vad": (_I64, [_F, _I64, _I32, _I32, _I32, ctypes.c_double,
                                 _F, _I64]),
+    "lzf_decompress": (_I64, [ctypes.c_char_p, _I64, ctypes.c_void_p, _I64]),
     "hub_create": (_H, [_I32] * 4),
     "hub_create_i16": (_H, [_I32] * 4),
     "hub_destroy": (None, [_H]),
@@ -154,6 +157,17 @@ def frame_energy_vad(x: np.ndarray, nfft: int, hop: int, pad_end: int,
     if n < 0:
         raise ValueError(f"frame_energy_vad failed: rc={n}")
     return out[:n]
+
+
+def lzf_decompress(data: bytes, out_len: int) -> bytes:
+    """LZF-compressed ``data`` -> exactly ``out_len`` bytes (the HDF5 LZF
+    filter's chunks: ``hdf5.lzf_decompress_py`` is the plain twin)."""
+    out = ctypes.create_string_buffer(out_len)
+    n = load().lzf_decompress(bytes(data), len(data), out, out_len)
+    if n != out_len:
+        raise ValueError(f"LZF chunk: decoded {n} bytes, expected {out_len} "
+                         "(-1: corrupt input, -2: output longer than expected)")
+    return out.raw
 
 
 class StreamHub:

@@ -1,4 +1,5 @@
-"""Waveform -> log-power STFT frontend (port of avvad_tpu/ops/stft.py:34-300).
+"""Waveform -> log-power STFT frontend, its inverse and the frame-energy
+VAD (port of avvad_tpu/ops/stft.py).
 
 Three routes to the windowed real DFT, all fp32 ``torch.matmul`` /
 ``einsum`` against cos/sin bases, as the JAX package computes them outside
@@ -18,6 +19,11 @@ Computation is fp32 throughout. On the card the matmul must not run in
 TF32 (the JAX package pins Precision.HIGHEST here: lower precision costs
 whole log-units on quiet bins); ``export.make_waveform_serving_fn`` turns
 TF32 off, and ``torch.backends.cuda.matmul.allow_tf32`` is False by default.
+
+``istft_frames`` inverts (re, im) spectra by two fp32 products with the
+inverse real-DFT bases, the windowed overlap-add and the division by the
+summed squared window; ``frame_energy_vad`` is the oracle energy VAD of
+``processing.targets.clean_speech_VAD`` on the card.
 """
 
 from __future__ import annotations
@@ -221,3 +227,77 @@ def log_power_frontend(x: torch.Tensor, fs: int = 16000, wlen_sec: float = 64e-3
                          center=center, pad_at_end=pad_at_end,
                          split_radix=split_radix, hop_dft=hop_dft)
     return torch.log(re * re + im * im + eps)
+
+
+@functools.lru_cache(maxsize=8)
+def _inverse_dft_bases(nfft: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n_freq, nfft) bases: time_frame = re @ Mr + im @ Mi (window applied
+    separately); the Hermitian-symmetric inverse real DFT (numpy irfft)."""
+    f = nfft // 2 + 1
+    k = np.arange(f, dtype=np.float64)[:, None]
+    n = np.arange(nfft, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / nfft
+    w = np.full((f, 1), 2.0)
+    w[0] = 1.0
+    w[-1] = 1.0  # nfft even
+    mr = (w * np.cos(ang) / nfft).astype(np.float32)
+    mi = (-(w * np.sin(ang)) / nfft).astype(np.float32)
+    mi[0] = 0.0
+    mi[-1] = 0.0
+    return mr, mi
+
+
+@functools.lru_cache(maxsize=8)
+def _overlap_add_scale(nfft: int, hop: int, t: int) -> np.ndarray:
+    """1 / the summed squared window at each output sample (0 where it is
+    0): the NOLA normalisation, which depends only on the shapes."""
+    n_out = nfft + hop * (t - 1)
+    win_sq = np.zeros(n_out, dtype=np.float64)
+    win64 = hann_window(nfft).astype(np.float64)
+    for f_i in range(t):
+        win_sq[f_i * hop:f_i * hop + nfft] += win64 * win64
+    tiny = np.finfo(np.float64).tiny
+    return np.where(win_sq > tiny, 1.0 / np.maximum(win_sq, tiny), 0.0).astype(np.float32)
+
+
+def istft_frames(re: torch.Tensor, im: torch.Tensor, fs: int = 16000,
+                 wlen_sec: float = 64e-3, hop_percent: float = 0.25,
+                 center: bool = False) -> torch.Tensor:
+    """(T, F) real and imaginary spectra -> (n_samples,) float32: the
+    inverse of ``stft_frames`` for one signal (``processing.stft.istft`` on
+    the card)."""
+    nfft = int(wlen_sec * fs)
+    hop = int(hop_percent * nfft)
+    t = re.shape[0]
+    mr, mi = _on(re.device, _inverse_dft_bases, nfft)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        frames = torch.matmul(re.float(), mr) + torch.matmul(im.float(), mi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (w,) = _on(re.device, _hann, nfft)
+    wf = frames * w
+    n_out = nfft + hop * (t - 1)
+    idx = (torch.arange(t, device=re.device)[:, None] * hop
+           + torch.arange(nfft, device=re.device)[None, :]).reshape(-1)
+    x = torch.zeros(n_out, dtype=torch.float32, device=re.device).index_add_(
+        0, idx, wf.reshape(-1))
+    x = x * torch.as_tensor(_overlap_add_scale(nfft, hop, t), device=re.device)
+    if center:
+        x = x[nfft // 2:-(nfft // 2)]
+    return x
+
+
+def frame_energy_vad(x: torch.Tensor, fs: int = 16000, wlen_sec: float = 64e-3,
+                     hop_percent: float = 0.25, pad_at_end: bool = True,
+                     vad_threshold: float = 1.70) -> torch.Tensor:
+    """(n_samples,) -> (n_frames,) float32 of 0 / 1: a frame is speech where
+    its energy exceeds 10 ** vad_threshold times the quietest frame's."""
+    nfft = int(wlen_sec * fs)
+    hop = int(hop_percent * nfft)
+    if pad_at_end and _needs_end_pad(x.shape[-1], fs, wlen_sec, hop_percent):
+        x = F.pad(x, (0, hop))
+    frames = frame_signal(x, nfft, hop)
+    power = torch.sum(frames * frames, dim=-1)
+    return (power > (10.0 ** vad_threshold) * torch.min(power)).float()

@@ -9,12 +9,14 @@ and rotates 90 degrees clockwise. ``fps_resample_indices`` is ffmpeg's
 ``fps`` filter's duplication schedule, exactly, which re-times the 30 fps
 camera to the 62.5 fps STFT rate without ffmpeg; the block schedules serve
 the streaming servers. The .mat files are MATLAB v7.3, that is HDF5:
-``read_mat_dct`` imports ``h5py`` inside, so the module imports without it.
+``read_mat_dct`` reads them through the port's own ``hdf5``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import hdf5
 
 
 def make_idct_matrix(n: int, dtype=np.float64) -> np.ndarray:
@@ -45,9 +47,7 @@ def idct2(x: np.ndarray) -> np.ndarray:
 
 def read_mat_dct(path: str) -> np.ndarray:
     """Read an NTCD-TIMIT .mat (v7.3/HDF5) file -> (frames, 4489) float array."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         arrays = [np.array(v) for v in f.values()]
     if len(arrays) != 1:
         raise ValueError(f"{path}: expected a single dataset, got {len(arrays)}")

@@ -161,6 +161,25 @@ def restore_checkpoint(path: str, state, with_opt: bool = True, mesh=None):
     return state, norm_stats, int(m.group(1)) if m else 0
 
 
+def restore_model(path: str, model):
+    """Restore only the weights of a checkpoint (parameters and buffers, no
+    optimizer) into ``model`` in place -> (norm_stats (numpy) or None,
+    epoch). The int8 tower's activation scales may be absent from the
+    checkpoint (a float checkpoint into a ``tower_int8`` model: a
+    calibration sets them), as JAX's ``with_opt=False`` restore leaves the
+    ``quant`` collection alone; any other missing or unexpected entry
+    raises."""
+    payload, path = _load(path, next(model.parameters()).device)
+    missing, unexpected = model.load_state_dict(payload["model"], strict=False)
+    missing = [k for k in missing if k.rsplit(".", 1)[-1] not in QUANT_BUFFERS]
+    if missing or unexpected:
+        raise KeyError(f"{path}: the checkpoint does not fit the model: missing "
+                       f"{missing[:5]}, unexpected {unexpected[:5]}")
+    norm_stats = {k: v.cpu().numpy() for k, v in payload["norm_stats"].items()} or None
+    m = _CKPT_RE.match(os.path.basename(os.path.normpath(path)))
+    return norm_stats, int(m.group(1)) if m else 0
+
+
 def load_pretrained_trunk(path: str, model) -> None:
     """Graft the ResNet trunk (``tower.features.*``: parameters and BatchNorm
     statistics) of a ``VideoVAD`` checkpoint into ``model`` in place, the

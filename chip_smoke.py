@@ -143,13 +143,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
     with the calibrated static-int8 tower (the channels-last K3 once and K2
     eight times a tick on its 288 unique frames), with the checks of phase
     13, one {"streaming": ...} line each;
-15. the corpus path at full width: one line saying whether h5py is
-    importable here, which picks the route: with it, a raw NTCD-TIMIT tree
-    made from the seed under build/ (2-8 s utterances, DCT video as
-    HDF5 .mat files, white noise at -5 dB), the port's builders and
-    AudioVisualSource over the processed tree; without it, SyntheticCorpus
-    (the same utterances in memory, through the port's host STFT and VAD
-    labels). 32 train, 16 validation and 64 test utterances. Trainer.fit,
+15. the corpus path at full width, on disk: a raw NTCD-TIMIT tree made
+    from the seed under build/ (2-8 s utterances, DCT video as HDF5 .mat
+    files, white noise at -5 dB; HDF5 read and written by the port's own
+    hdf5.py, no h5py), the port's builders through the create_train_files
+    twin (its {"cli": ...} line) and AudioVisualSource over the processed
+    tree. 32 train, 16 validation and 64 test utterances. Trainer.fit,
     one epoch of the fp32 AVVAD (MCB 1024, 2 x LSTM 1024, ResNet-18
     frozen) on DataLoader(batch_size=16, bucket=128, shuffled), with the
     Prefetcher, without it and with it again, each with its launch counts
@@ -163,8 +162,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
     step with the plain K2 / K3 and the plain recurrence; the loader alone
     over the test split (the host feed's time); one more evaluate_split
     under torch.profiler for the device's idle share; the
-    predictions scored (score_split on disk, else compute_stats over
-    f1_metrics and roc_auc); one {"corpus": ...} line;
+    predictions scored (score_split); one {"corpus": ...} line;
+15a. the command-line twins (avvad_tpu_torch/scripts), each main(argv)
+    in process at full width on phase 15's tree, the launch counters read
+    around each, one {"cli": ...} line a call: import_checkpoint of a
+    seeded reference-layout .pt (AVVAD: ResNet-18, MCB 1024, 2 x LSTM 1024;
+    VideoVAD); train --resume, one epoch at B=16 (the persistent K1d / K1e
+    2 + 2 a train batch, K1a 2 a validation batch); evaluate with the
+    static-int8 tower and int8 state (K3 1, K2 8, K1b 2 a batch, and 2 a
+    batch of the calibration), its predictions bit for bit against the
+    in-process evaluate_split; run_metrics; reconstruct (VideoVAD, B=1);
+    export_serving (the int8-tower step at B=64, T=512, 30 fps), whose
+    replay matches the live step bit for bit (K1a 2, K3 1, K2 8); the
+    serve_server twin's build_server from a multi-stream artifact of the
+    int8 AV server, 32 localhost clients, every stream within 5e-4 of a
+    solo streamer, K3 1 and K2 8 a tick; stream_demo on one wav and its lip
+    video;
 16. RawAudioVAD serving (WaveNet encoder on cuDNN convolutions, 2 x LSTM
     1024 as the plain loop, bf16, out_frames 512) through
     make_waveform_serving_fn at scripts/bench_modalities.py's shape (B=64,
@@ -340,6 +353,7 @@ SOLO_TOL = {"audio": 1e-5, "av": 5e-4, "video": 1e-2, "video_fp32": 1e-5}
 # same shapes on the same card
 PIPE_TOL = 1e-6
 BUILD = Path(__file__).resolve().parent / "build"
+HDF5_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 # the serving artifacts this run exports (deleted at the end of their phase)
 ARTIFACTS = BUILD / "artifacts"
 # MCB at "default" (bf16 operands) against "highest" on the serving step's
@@ -2124,8 +2138,9 @@ def video_streaming_phase() -> None:
 
 
 class SyntheticCorpus:
-    """One NTCD-TIMIT split made from the seed, in memory: the route of the
-    corpus phase where ``h5py`` is not installed. It follows the port's
+    """One NTCD-TIMIT split made from the seed, in memory: the mesh phase's
+    source for the sharded evaluate_split (its ranks read no disk tree),
+    with the utterances ``write_raw_corpus`` writes. It follows the port's
     source protocol (``__len__``, ``__getitem__``, ``probe_length``,
     ``rel_path``, ``label_rel_path``, ``metadata``) and yields the dicts of
     ``data.AudioVisualSource`` at the corpus's shapes: log-power (T, 513)
@@ -2239,9 +2254,9 @@ def write_raw_corpus(raw: Path, sizes: dict, seed: int = 0, dur: tuple = CORPUS_
     """A raw NTCD-TIMIT tree under ``raw`` in the corpus's layout
     (scripts/synth_complete_corpus.py): for each split of ``sizes`` the
     utterances of ``SyntheticCorpus``, clean and noisy wavs and the video
-    as a DCT ``.mat`` (HDF5) file at 30 fps."""
-    import h5py
-
+    as a DCT ``.mat`` (HDF5, written by the port's ``hdf5``) file at 30
+    fps."""
+    from avvad_tpu_torch import hdf5
     from avvad_tpu_torch.processing import write_wav
 
     noisy_base = raw / "ntcd_timit/u/drspeech/data/TCDTIMIT/Noisy_TCDTIMIT/Babble/-5/volunteers"
@@ -2258,76 +2273,164 @@ def write_raw_corpus(raw: Path, sizes: dict, seed: int = 0, dur: tuple = CORPUS_
             clean, noisy = corpus_audio(rng, float(durs[i]))
             write_wav(str(dirs[1] / f"{utt}.wav"), clean, CORPUS_FS)
             write_wav(str(dirs[2] / f"{utt}.wav"), noisy, CORPUS_FS)
-            with h5py.File(dirs[0] / f"{utt}.mat", "w") as f:
+            with hdf5.File(dirs[0] / f"{utt}.mat", "w") as f:
                 f.create_dataset("data", data=corpus_dct(rng, int(np.ceil(durs[i] * 30))))
 
 
-def corpus_on_disk(root: Path, seed: int = 0) -> dict:
-    """The route where ``h5py`` is installed: ``write_raw_corpus`` under
-    ``root``, the port's builders on it, the port's ``AudioVisualSource``
-    over the processed tree -> {split: source}, the processed root and the
-    built statistics."""
-    from avvad_tpu_torch import builders
-    from avvad_tpu_torch.data import AudioVisualSource, load_statistics
+def hdf5_fixture_check() -> dict:
+    """The committed HDF5 fixtures (tests/fixtures/make_hdf5_fixtures.py,
+    written by h5py: a lip video as the JAX builders write it, LZF, one
+    chunk a frame in a two-level chunk B-tree; a MATLAB v7.3-style ``.mat``
+    with a 512-byte user block, shuffle and deflate) read through the
+    port's ``hdf5``: each array's SHA-256 against h5py's, the ``.mat``
+    through ``read_mat_dct`` too, and the C++ LZF decoder against its Python
+    twin chunk by chunk -> {file: {dataset: ...}}."""
+    import hashlib
 
-    raw, out = root / "raw", root / "processed"
+    from avvad_tpu_torch import hdf5, native
+    from avvad_tpu_torch.processing.video import read_mat_dct
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    meta = json.loads((HDF5_FIXTURES / "hdf5_fixtures.json").read_text())
+    out = {}
+    for fname, datasets in meta.items():
+        path = HDF5_FIXTURES / fname
+        out[fname] = {}
+        with hdf5.File(path) as f:
+            if f.keys() != list(datasets):
+                raise RuntimeError(f"hdf5 fixture {fname}: datasets {f.keys()}")
+            for name, want in datasets.items():
+                t0 = time.perf_counter()
+                d = f[name]
+                a = d[()]
+                read_ms = 1e3 * (time.perf_counter() - t0)
+                if (list(a.shape), a.dtype.str, sha(a)) != (want["shape"], want["dtype"],
+                                                             want["sha256"]):
+                    raise RuntimeError(f"hdf5 fixture {fname}/{name}: {a.shape} {a.dtype} "
+                                       f"differs from h5py's reading")
+                row = {"shape": list(a.shape), "read_ms": read_ms, "sha256_equal": True}
+                if want["lzf_chunks"]:
+                    nbytes = int(np.prod(d.chunks)) * d.dtype.itemsize
+                    chunks = [f._reader.read(addr, size) for addr, size, mask in
+                              f._reader.chunk_index(d._layout[1], d.ndim).values() if mask == 0]
+                    same = sum(native.lzf_decompress(c, nbytes) == hdf5.lzf_decompress_py(c, nbytes)
+                               for c in chunks)
+                    if len(chunks) != want["lzf_chunks"] or same != len(chunks):
+                        raise RuntimeError(f"hdf5 fixture {fname}/{name}: {same} of "
+                                           f"{len(chunks)} LZF chunks decode alike "
+                                           f"({want['lzf_chunks']} expected)")
+                    row["lzf_chunks_native_equal_python"] = same
+                out[fname][name] = row
+        if fname.endswith(".mat"):
+            (name, want), = datasets.items()
+            if sha(read_mat_dct(str(path))) != want["sha256"]:
+                raise RuntimeError(f"hdf5 fixture {fname}: read_mat_dct differs from h5py's")
+    print(f"hdf5 fixtures: {json.dumps(out)}")
+    return out
+
+
+def _import_builders(_) -> None:
+    import avvad_tpu_torch.builders  # noqa: F401
+
+
+def corpus_build_stages(raw: Path, n_utts: int = 1) -> dict:
+    """Where the build's time goes: the wall of starting a pool of
+    CORPUS_BUILD_WORKERS spawned workers that import the builders (what
+    the build pays once), and each stage of the first ``n_utts`` train
+    utterances' video and audio work, serially, by ``PhaseTimer``."""
+    from avvad_tpu_torch import builders
+    from avvad_tpu_torch.builders import BuildConfig, make_label
+    from avvad_tpu_torch.datasets import ntcd_timit as catalog
+    from avvad_tpu_torch.processing import read_wav, stft
+    from avvad_tpu_torch.processing.audio_io import peak_normalize
+    from avvad_tpu_torch.processing.stft import log_power_spectrogram
+    from avvad_tpu_torch.processing.video import (decode_dct_frames, idct2, read_mat_dct,
+                                                  upsample_video)
+    from avvad_tpu_torch.utils import PhaseTimer
+
+    t0 = time.perf_counter()
+    with builders._spawn_pool(CORPUS_BUILD_WORKERS) as pool:
+        list(pool.map(_import_builders, range(CORPUS_BUILD_WORKERS)))
+    pool_s = time.perf_counter() - t0
+
+    cfg = BuildConfig(raw_dir=str(raw) + "/", processed_dir="")
+    mats = catalog.video_list(cfg.raw_dir, "train")[:n_utts]
+    clean = catalog.speech_list(cfg.raw_dir, "train")[0][:n_utts]
+    noisy = list(catalog.noisy_speech_dict(cfg.raw_dir, "train", "subset"))[:n_utts]
+    timer, frames = PhaseTimer(), 0
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as out:
+        for i, (mat, wav, nwav) in enumerate(zip(mats, clean, noisy)):
+            with timer.phase("read_mat"):
+                dct = read_mat_dct(cfg.raw_dir + mat)
+            with timer.phase("idct2 (in decode)"):
+                idct2(dct.reshape(-1, 67, 67))
+            with timer.phase("decode"):
+                video = decode_dct_frames(dct)
+            with timer.phase("upsample"):
+                video = np.ascontiguousarray(np.moveaxis(upsample_video(video), 0, -1))
+            with timer.phase("wav_label"):
+                x, fs = read_wav(cfg.raw_dir + wav)
+                label = make_label(peak_normalize(x), fs, cfg.stft, cfg.label)
+            with timer.phase("write_h5"):
+                builders._write_h5(f"{out}/{i}_x.h5", "X", video)
+                builders._write_h5(f"{out}/{i}_y.h5", "Y", label)
+            with timer.phase("noisy_stats"):
+                xn, fs = read_wav(cfg.raw_dir + nwav)
+                c = cfg.stft
+                spec = log_power_spectrogram(
+                    stft(peak_normalize(xn), fs=fs, wlen_sec=c.wlen_sec, win=c.win,
+                         hop_percent=c.hop_percent, center=c.center, pad_mode=c.pad_mode,
+                         pad_at_end=c.pad_at_end), eps=c.eps)
+                spec.sum(axis=-1), (spec ** 2).sum(axis=-1)
+            frames += dct.shape[0]
+    print(f"corpus build stages, {len(mats)} train utterances ({frames} frames at 30 fps) "
+          f"serially; a pool of {CORPUS_BUILD_WORKERS} workers started in {pool_s:.2f} s:\n"
+          + timer.report())
+    return {"pool_start_s": pool_s, "utterances": len(mats), "frames": frames,
+            "stages_s": dict(timer.totals)}
+
+
+def corpus_on_disk(root: Path, seed: int = 0) -> dict:
+    """``write_raw_corpus`` under ``root``, the port's builders on it
+    through the ``create_train_files`` twin (in process, its launches
+    counted and its {"cli": ...} line printed: the CLI phase takes this
+    build as its own), the port's ``AudioVisualSource`` over the processed
+    tree -> {split: source}, the raw tree, the data root and processed
+    root, and the built statistics."""
+    from avvad_tpu_torch.data import AudioVisualSource, load_statistics
+    from avvad_tpu_torch.scripts import create_train_files
+
+    raw, data = root / "raw", root / "data"
+    out = data / "subset" / "processed"
     write_raw_corpus(raw, CORPUS_SPLITS, seed)
-    cfg = builders.BuildConfig(raw_dir=str(raw) + "/", processed_dir=str(out) + "/",
-                               dataset_size="subset", upsampled_suffix=True,
-                               max_workers=CORPUS_BUILD_WORKERS)
-    for split in CORPUS_SPLITS:
-        builders.build_video_split(cfg, split)
-        builders.build_audio_split(cfg, split)
+    t0 = time.perf_counter()
+    built, _ = cli_run("create_train_files", create_train_files.main,
+                       ["--raw-dir", str(raw), "--processed-dir", str(out),
+                        "--workers", str(CORPUS_BUILD_WORKERS)], {})
+    if built != {f"{s}/{k}": n * (2 if k == "audio" else 1)
+                 for s, n in CORPUS_SPLITS.items() for k in ("video", "audio")}:
+        raise RuntimeError(f"create_train_files: built {built}")
+    build = {"build_s": time.perf_counter() - t0, **corpus_build_stages(raw)}
     stats = {}
     stats["audio_mean"], stats["audio_std"] = load_statistics(
         str(out / "ntcd_timit/Noisy/ntcd_timit_log_power_spec_upsampled_statistics.h5"))
     stats["video_mean"], stats["video_std"] = load_statistics(
         str(out / "ntcd_timit/matlab_raw/ntcd_timit_upsampled_statistics.h5"))
     return {"sources": {s: AudioVisualSource(str(out) + "/", s) for s in CORPUS_SPLITS},
-            "root": str(out) + "/", "stats": stats}
-
-
-def corpus_in_script(seed: int = 0) -> dict:
-    """The route where ``h5py`` is not installed: ``SyntheticCorpus`` for
-    each split, the statistics from 8 train utterances (``feature_stats``
-    over the log-power; the video's mean and std over all pixels)."""
-    from avvad_tpu_torch.data import feature_stats
-
-    sources = {s: SyntheticCorpus(s, n, seed) for s, n in CORPUS_SPLITS.items()}
-    mean, std = feature_stats(sources["train"], "audio", max_items=8)
-    video = np.concatenate([sources["train"][i]["video"].ravel() for i in range(2)])
-    stats = {"audio_mean": mean[:, None], "audio_std": std[:, None],
-             "video_mean": np.float32([[video.mean()]]),
-             "video_std": np.float32([[video.std()]])}
-    return {"sources": sources, "root": None, "stats": stats}
+            "raw": str(raw) + "/", "data": str(data), "root": str(out) + "/",
+            "stats": stats, "build": build}
 
 
 def corpus_score(route: dict, classif_dir: str) -> dict:
-    """The written predictions of the test split against its labels:
-    ``score_split`` on the disk route; on the in-script route the same
-    per-utterance metrics (``f1_metrics``, ``roc_auc``) into
-    ``compute_stats``."""
-    from avvad_tpu_torch.evaluate import compute_stats, prediction_paths, roc_auc, score_split
-    from avvad_tpu_torch.evaluate.classify import METRIC_KEYS
-    from avvad_tpu_torch.models.losses import f1_metrics
+    """The written predictions of the test split against its labels
+    (``score_split``)."""
+    from avvad_tpu_torch.evaluate import score_split
 
-    source = route["sources"]["test"]
-    if route["root"] is not None:
-        return score_split(source, route["root"], classif_dir, save_stats=False,
-                           verbose=False, max_workers=8)
-    rows, snrs, noises, speakers = [], [], [], []
-    for i in range(len(source)):
-        item = source[i]
-        hard, soft = (np.load(p) for p in prediction_paths(classif_dir, source.rel_path(i)))
-        y = item["label"][:len(hard)]
-        metrics = f1_metrics(torch.from_numpy(hard[:, None].astype(np.float32)),
-                             torch.from_numpy(y))
-        rows.append([float(v) for v in metrics] + [roc_auc(y, soft)])
-        snrs.append(float(item["snr_db"]))
-        noises.append(item["noise_type"])
-        speakers.append(item["speaker"])
-    return compute_stats(METRIC_KEYS, rows, all_snr_db=np.asarray(snrs),
-                         all_noise_types=noises, all_speakers=speakers, verbose=False)
+    return score_split(route["sources"]["test"], route["root"], classif_dir,
+                       save_stats=False, verbose=False, max_workers=8)
 
 
 def corpus_fit(state, sources, stats, prefetch: bool) -> dict:
@@ -2388,126 +2491,122 @@ def corpus_plain_check(state, source, stats, classif_dir: str) -> float:
     return worst
 
 
-def corpus_phase() -> None:
-    """The corpus path at full width: a source (on disk through the port's
-    builders where h5py is installed, else SyntheticCorpus), Trainer.fit on
-    DataLoader with and without the Prefetcher, calibrate_quant_scales,
-    evaluate_split with the static-int8 tower for state_quant none and
-    int8, scoring; one {"corpus": ...} line."""
-    import importlib.util
-
+def corpus_phase(tmp: str) -> dict:
+    """The corpus path at full width, under ``tmp``: the raw tree through
+    the port's builders (HDF5 by the port's ``hdf5``) into
+    AudioVisualSource, Trainer.fit on DataLoader with and without the
+    Prefetcher, calibrate_quant_scales, evaluate_split with the static-int8
+    tower for state_quant none and int8, scoring; one {"corpus": ...}
+    line -> the route (sources, raw and processed roots, statistics)."""
     from avvad_tpu_torch.data import DataLoader
     from avvad_tpu_torch.evaluate import calibrate_quant_scales, evaluate_split
     from avvad_tpu_torch.models import AVVAD
     from avvad_tpu_torch.ops import conv_fused, stem_fused
     from avvad_tpu_torch.train import create_train_state
 
-    has_h5py = importlib.util.find_spec("h5py") is not None
-    print(f"corpus: h5py importable on this machine: {has_h5py}; route "
-          f"{'on disk (builders, AudioVisualSource)' if has_h5py else 'in script (SyntheticCorpus)'}")
-    BUILD.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        t0 = time.perf_counter()
-        route = corpus_on_disk(Path(tmp)) if has_h5py else corpus_in_script()
-        setup_s = time.perf_counter() - t0
-        sources, stats = route["sources"], route["stats"]
-        test = sources["test"]
-        n_frames_test = sum(test.probe_length(i) for i in range(len(test)))
-        print(f"corpus: {', '.join(f'{s} {len(src)}' for s, src in sources.items())} "
-              f"utterances ({n_frames_test} test frames by the probe), set up in {setup_s:.1f} s")
+    fixtures = hdf5_fixture_check()
+    t0 = time.perf_counter()
+    route = corpus_on_disk(Path(tmp))
+    setup_s = time.perf_counter() - t0
+    sources, stats = route["sources"], route["stats"]
+    test = sources["test"]
+    n_frames_test = sum(test.probe_length(i) for i in range(len(test)))
+    print(f"corpus: {', '.join(f'{s} {len(src)}' for s, src in sources.items())} "
+          f"utterances ({n_frames_test} test frames by the probe), set up in {setup_s:.1f} s")
 
-        # training: fp32, the trunk frozen, as the training phases
-        state = create_train_state(
-            AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
-                  use_kernel_lstm=True, seed=0), freeze_video_trunk=True)
+    # training: fp32, the trunk frozen, as the training phases
+    state = create_train_state(
+        AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+              use_kernel_lstm=True, seed=0), freeze_video_trunk=True)
+    torch.cuda.reset_peak_memory_stats()
+    fits = {f"prefetch_{k}": corpus_fit(state, sources, stats, p)
+            for k, p in (("on", True), ("off", False), ("on_again", True))}
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # evaluation: the trained weights in the static-int8 fused tower
+    model = AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                  use_kernel_lstm=True, tower_int8=True, tower_quant_mode="static",
+                  tower_pallas=True, seed=0)
+    missing, unexpected = model.load_state_dict(state.model.state_dict(), strict=False)
+    if unexpected or any(k.split(".")[-1] not in ("q_stem", "q1", "q_out") for k in missing):
+        raise RuntimeError(f"corpus: int8 model keys: missing {missing}, "
+                           f"unexpected {unexpected}")
+    del state
+    torch.cuda.empty_cache()
+    eval_state = create_train_state(model)
+    t0 = time.perf_counter()
+    calibrate_quant_scales(eval_state, model, sources["train"], "av", norm_stats=stats)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    trunk = model.tower.features
+    print(f"corpus: calibrate_quant_scales on {min(8, len(sources['train']))} train "
+          f"utterances in {cal_s:.1f} s; "
+          f"q_stem {trunk.q_stem.item():.4f}, layer4_1.q_out {trunk.layer4_1.q_out.item():.4f}")
+    n_batches = len(DataLoader(test, batch_size=CORPUS_EVAL_B))
+    evals = {}
+    for sq in INT8_STATE_QUANTS:
+        model.set_lstm_state_quant(sq)
+        classif = f"{tmp}/classif_{sq}/"
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        fits = {f"prefetch_{k}": corpus_fit(state, sources, stats, p)
-                for k, p in (("on", True), ("off", False), ("on_again", True))}
-        train_peak = torch.cuda.max_memory_allocated() / 2**30
-
-        # evaluation: the trained weights in the static-int8 fused tower
-        model = AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
-                      use_kernel_lstm=True, tower_int8=True, tower_quant_mode="static",
-                      tower_pallas=True, seed=0)
-        missing, unexpected = model.load_state_dict(state.model.state_dict(), strict=False)
-        if unexpected or any(k.split(".")[-1] not in ("q_stem", "q1", "q_out") for k in missing):
-            raise RuntimeError(f"corpus: int8 model keys: missing {missing}, "
-                               f"unexpected {unexpected}")
-        del state
-        torch.cuda.empty_cache()
-        eval_state = create_train_state(model)
-        t0 = time.perf_counter()
-        calibrate_quant_scales(eval_state, model, sources["train"], "av", norm_stats=stats)
+        report = evaluate_split(eval_state, test, "av", classif, norm_stats=stats,
+                                batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET,
+                                verbose=False)
         torch.cuda.synchronize()
-        cal_s = time.perf_counter() - t0
-        trunk = model.tower.features
-        print(f"corpus: calibrate_quant_scales on {min(8, len(sources['train']))} train "
-              f"utterances in {cal_s:.1f} s; "
-              f"q_stem {trunk.q_stem.item():.4f}, layer4_1.q_out {trunk.layer4_1.q_out.item():.4f}")
-        n_batches = len(DataLoader(test, batch_size=CORPUS_EVAL_B))
-        evals = {}
-        for sq in INT8_STATE_QUANTS:
-            model.set_lstm_state_quant(sq)
-            classif = f"{tmp}/classif_{sq}/"
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            report = evaluate_split(eval_state, test, "av", classif, norm_stats=stats,
-                                    batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET,
-                                    verbose=False)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            expect = {**dict.fromkeys(counts, 0), sq + "_persist": 2 * n_batches,
-                      conv_fused.KERNEL_NAME: 8 * n_batches,
-                      stem_fused.NHWC_KERNEL_NAME: n_batches}
-            if counts != expect:
-                raise RuntimeError(f"corpus evaluate_split {sq}: launch counts {counts}, "
-                                   f"expected {expect}")
-            n_files = sum(len(fs) for _, _, fs in os.walk(classif))
-            if report["n_utterances"] != len(test) or n_files != 2 * len(test):
-                raise RuntimeError(f"corpus evaluate_split {sq}: {report}, {n_files} files")
-            err = corpus_plain_check(eval_state, test, stats, classif)
-            if err > INT8_PROB_TOL:
-                raise RuntimeError(f"corpus evaluate_split {sq}: against plain K2/K3 and "
-                                   f"the plain recurrence {err}")
-            evals[sq] = {**{k: report[k] for k in ("n_utterances", "n_frames", "elapsed_s",
-                                                   "rt_factor")},
-                         "launches_per_batch": {k: v // n_batches for k, v in counts.items()
-                                                if v},
-                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-                         "plain_max_abs_diff": err}
-            print(f"corpus evaluate_split int8 tower / {sq}: {report['n_utterances']} utts, "
-                  f"{report['n_frames']} frames in {report['elapsed_s']:.3f} s "
-                  f"({report['rt_factor']:.1f}x real time), {n_batches} batches, launches "
-                  f"{counts}, against plain K2/K3 + recurrence {err:.2e} "
-                  f"(tol {INT8_PROB_TOL:g}), peak {evals[sq]['peak_memory_gib']:.2f} GiB")
-        # the host feed alone: evaluate_split's loader over the test split
-        t0 = time.perf_counter()
-        for _ in DataLoader(test, batch_size=CORPUS_EVAL_B, shuffle=False, bucket=CORPUS_BUCKET,
-                            bucket_ladder=True, pad_batch_to_full=True, sort_pool_factor=4):
-            pass
-        feed_s = time.perf_counter() - t0
-        print(f"corpus: the loader alone over the test split (no device work): {feed_s:.3f} s")
-        prof = profile_step(lambda: evaluate_split(
-            eval_state, test, "av", f"{tmp}/classif_profiled/", norm_stats=stats,
-            batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET, verbose=False))
-        print(f"corpus evaluate_split under torch.profiler: wall "
-              f"{prof['profiled_step_wall_ms']:.1f} ms, device busy "
-              f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.4f}")
-        stats_out = corpus_score(route, f"{tmp}/classif_int8/")
-        overall = stats_out["overall"]
-        if not all(np.isfinite(overall[k]["avg"]) for k in ("accuracy", "precision",
-                                                             "recall", "f1")):
-            raise RuntimeError(f"corpus scoring: {overall}")
-        print(f"corpus scoring ({'score_split' if has_h5py else 'compute_stats'}): "
-              f"{json.dumps(overall)}")
+        counts = launch_counts()
+        expect = {**dict.fromkeys(counts, 0), sq + "_persist": 2 * n_batches,
+                  conv_fused.KERNEL_NAME: 8 * n_batches,
+                  stem_fused.NHWC_KERNEL_NAME: n_batches}
+        if counts != expect:
+            raise RuntimeError(f"corpus evaluate_split {sq}: launch counts {counts}, "
+                               f"expected {expect}")
+        n_files = sum(len(fs) for _, _, fs in os.walk(classif))
+        if report["n_utterances"] != len(test) or n_files != 2 * len(test):
+            raise RuntimeError(f"corpus evaluate_split {sq}: {report}, {n_files} files")
+        err = corpus_plain_check(eval_state, test, stats, classif)
+        if err > INT8_PROB_TOL:
+            raise RuntimeError(f"corpus evaluate_split {sq}: against plain K2/K3 and "
+                               f"the plain recurrence {err}")
+        evals[sq] = {**{k: report[k] for k in ("n_utterances", "n_frames", "elapsed_s",
+                                               "rt_factor")},
+                     "launches_per_batch": {k: v // n_batches for k, v in counts.items()
+                                            if v},
+                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "plain_max_abs_diff": err}
+        print(f"corpus evaluate_split int8 tower / {sq}: {report['n_utterances']} utts, "
+              f"{report['n_frames']} frames in {report['elapsed_s']:.3f} s "
+              f"({report['rt_factor']:.1f}x real time), {n_batches} batches, launches "
+              f"{counts}, against plain K2/K3 + recurrence {err:.2e} "
+              f"(tol {INT8_PROB_TOL:g}), peak {evals[sq]['peak_memory_gib']:.2f} GiB")
+    # the host feed alone: evaluate_split's loader over the test split
+    t0 = time.perf_counter()
+    for _ in DataLoader(test, batch_size=CORPUS_EVAL_B, shuffle=False, bucket=CORPUS_BUCKET,
+                        bucket_ladder=True, pad_batch_to_full=True, sort_pool_factor=4):
+        pass
+    feed_s = time.perf_counter() - t0
+    print(f"corpus: the loader alone over the test split (no device work): {feed_s:.3f} s")
+    prof = profile_step(lambda: evaluate_split(
+        eval_state, test, "av", f"{tmp}/classif_profiled/", norm_stats=stats,
+        batch_size=CORPUS_EVAL_B, bucket=CORPUS_BUCKET, verbose=False))
+    print(f"corpus evaluate_split under torch.profiler: wall "
+          f"{prof['profiled_step_wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.4f}")
+    stats_out = corpus_score(route, f"{tmp}/classif_int8/")
+    overall = stats_out["overall"]
+    if not all(np.isfinite(overall[k]["avg"]) for k in ("accuracy", "precision",
+                                                         "recall", "f1")):
+        raise RuntimeError(f"corpus scoring: {overall}")
+    print(f"corpus scoring (score_split): {json.dumps(overall)}")
     print(json.dumps({"corpus": {
-        "route": "on_disk" if has_h5py else "in_script", "h5py": has_h5py,
+        "route": "on_disk",
         "utterances": {s: len(src) for s, src in sources.items()},
-        "setup_s": setup_s, "train": fits, "train_peak_memory_gib": train_peak,
+        "setup_s": setup_s, "build": route["build"], "hdf5_fixtures": fixtures,
+        "train": fits, "train_peak_memory_gib": train_peak,
         "calibrate_s": cal_s, "evaluate": evals, "test_feed_alone_s": feed_s,
         "evaluate_profiled": {k: prof[k] for k in ("profiled_step_wall_ms", "device_busy_ms",
                                                     "device_idle_share", "top_kernels")},
         "score_overall": overall}}))
+    return route
 
 
 # --- the TCP server, the C++ hub and the raw-waveform family ------------------
@@ -3307,6 +3406,239 @@ def mesh_phase(int8_model) -> None:
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --- the command-line entry points -------------------------------------------
+
+CLI_TRAIN_B, CLI_EVAL_B, CLI_CAL_UTTS, CLI_CAL_B = 16, 8, 8, 4
+CLI_LR = 1e-4
+
+
+def cli_reference_pt(path: Path, seed: int = 0) -> None:
+    """A reference-layout (DeepVAD_{AV,video,audio}) torch state dict at full
+    width (MCB 1024, 2 x LSTM 1024) from the seed,
+    ``utils.torch_import.random_reference_state`` with the LSTM and head
+    weights at 1/sqrt(H)."""
+    from avvad_tpu_torch.utils.torch_import import random_reference_state
+
+    state = random_reference_state(seed, H, 1024, lstm_std=H ** -0.5, head_std=H ** -0.5)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()}, path)
+
+
+def cli_state(model_dir: Path, which: str) -> dict:
+    """A port checkpoint's model state dict: the model dir's ``latest`` or
+    its ``first`` (by epoch)."""
+    from avvad_tpu_torch.train import latest_checkpoint
+
+    ckpt = (latest_checkpoint(str(model_dir)) if which == "latest"
+            else str(min(model_dir.glob("epoch_*"))))
+    return torch.load(Path(ckpt) / "state.pt", map_location="cpu", weights_only=True)["model"]
+
+
+def cli_run(name: str, fn, argv: list, expect: dict | None = None):
+    """``fn(argv)`` (a twin's ``main`` or ``build_server``) with the launch
+    counters set to 0 just before and read just after -> (its result, the
+    launches); one {"cli": ...} line. ``expect``: the launches it must
+    have made (nothing else)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = nonzero_counts()
+    print(json.dumps({"cli": name, "wall_s": wall, "launches": counts}))
+    if expect is not None and counts != {k: v for k, v in expect.items() if v}:
+        raise RuntimeError(f"cli {name}: launches {counts}, expected {expect}")
+    return out, counts
+
+
+def cli_phase(route: dict, tmp: str) -> None:
+    """Each command-line twin's ``main(argv)`` in process at full width
+    (AVVAD: ResNet-18, MCB 1024, 2 x LSTM 1024; VideoVAD) on the corpus
+    phase's tree (which ``create_train_files`` built there), the launch
+    counters read around each: import of a seeded reference ``.pt``, one
+    epoch of train --resume, evaluate (static-int8 tower on K3 / K2, int8 state) against
+    the in-process evaluate_split bit for bit, run_metrics, reconstruct,
+    export_serving (the replay against the live step bit for bit), the
+    artifact-driven server (build_server) with STREAMS localhost clients
+    against a solo streamer, and stream_demo on one wav. One {"cli": ...}
+    line a twin."""
+    from avvad_tpu_torch.data import AudioVisualSource, DataLoader
+    from avvad_tpu_torch.evaluate import calibrate_quant_scales, evaluate_split
+    from avvad_tpu_torch.export import (ServingArtifact, export_multistream_server,
+                                        make_waveform_serving_fn)
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.scripts import (evaluate, export_serving, import_checkpoint,
+                                         reconstruct, run_metrics, serve_server,
+                                         stream_demo, train)
+    from avvad_tpu_torch.scripts._common import build_model, restore
+    from avvad_tpu_torch.serve import MultiStreamAVVAD, StreamingAVVAD
+    from avvad_tpu_torch.server import av_stream_client
+    from avvad_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    root = Path(tmp) / "cli"
+    root.mkdir()
+    ref = root / "reference.pt"
+    cli_reference_pt(ref)
+    av_dir, video_dir = root / "av", root / "video"
+    processed = Path(route["root"])
+    for modality, out in (("av", av_dir), ("video", video_dir)):
+        cli_run(f"import_checkpoint/{modality}", import_checkpoint.main,
+                ["--modality", modality, "--torch-checkpoint", str(ref), "--output-dir",
+                 str(out)], {})
+    test = route["sources"]["test"]
+    n = {s: len(DataLoader(AudioVisualSource(str(processed) + "/", s), batch_size=b))
+         for s, b in (("train", CLI_TRAIN_B), ("validation", CLI_TRAIN_B),
+                      ("test", CLI_EVAL_B))}
+    data_args = ["--data-root", route["data"]]
+
+    # one epoch from the imported checkpoint, the trunk trained
+    cli_run("train", train.main,
+            ["--modality", "av", *data_args, "--model-dir", str(av_dir), "--resume",
+             "--epochs", "1", "--batch-size", str(CLI_TRAIN_B), "--lr", str(CLI_LR)],
+            {"fwd_train_persist": 2 * n["train"], "bwd_persist": 2 * n["train"],
+             "none_persist": 2 * n["validation"]})
+    epoch_log = (av_dir / "output_epoch.log").read_text().splitlines()
+    if not epoch_log or epoch_log[0] != "Epoch: 1":
+        raise RuntimeError(f"cli train: epoch log {epoch_log}")
+    # every trained tensor moved, the trunk's too (its parity with JAX:
+    # tests/test_torch_port_cli_train.py)
+    before, after = cli_state(av_dir, "first"), cli_state(av_dir, "latest")
+    trained = [n for n, p in build_model("av").named_parameters() if p.requires_grad]
+    still = [n for n in trained if not (after[n] - before[n]).abs().max() > 0.5 * CLI_LR]
+    print(f"cli train: {len(trained) - len(still)} of {len(trained)} trained tensors moved "
+          f"by more than lr/2 ({sum(n.startswith('tower.') for n in trained)} of the trunk)")
+    if still or not trained:
+        raise RuntimeError(f"cli train: tensors that did not move: {still}")
+
+    # evaluate: the static-int8 tower on K3 / K2, the int8 recurrence
+    int8_opts = dict(tower_int8=True, tower_quant_mode="static", tower_pallas=True)
+    cal = {lstm_fused.infer_variant("int8", CLI_CAL_B, H, sms):
+           2 * -(-CLI_CAL_UTTS // CLI_CAL_B)}
+    expect = {stem_fused.NHWC_KERNEL_NAME: n["test"], conv_fused.KERNEL_NAME: 8 * n["test"]}
+    variant = lstm_fused.infer_variant("int8", CLI_EVAL_B, H, sms)
+    expect[variant] = 2 * n["test"] + cal.get(variant, 0)
+    expect.update({k: v for k, v in cal.items() if k != variant})
+    report, _ = cli_run("evaluate", evaluate.main,
+                        ["--modality", "av", *data_args, "--checkpoint", str(av_dir),
+                         "--output-dir", str(root / "pred"), "--batch-size",
+                         str(CLI_EVAL_B), "--tower-int8", "--tower-quant-mode", "static",
+                         "--tower-pallas", "--lstm-state-quant", "int8",
+                         "--calibrate-utts", str(CLI_CAL_UTTS)], expect)
+    model = build_model("av", lstm_state_quant="int8", **int8_opts)
+    stats, _ = restore(str(av_dir), model, torch.device("cuda"))
+    state = TrainState(model.eval(), None, torch.device("cuda"))
+    calibrate_quant_scales(state, model, AudioVisualSource(str(processed) + "/", "train"),
+                           "av", norm_stats=stats, n_utts=CLI_CAL_UTTS)
+    evaluate_split(state, test, "av", str(root / "pred_in_process") + "/", norm_stats=stats,
+                   batch_size=CLI_EVAL_B, verbose=False)
+    soft = sorted(p.relative_to(root / "pred") for p in (root / "pred").rglob("*_soft.npy"))
+    same = [np.array_equal(np.load(root / "pred" / r), np.load(root / "pred_in_process" / r))
+            for r in soft]
+    print(f"cli evaluate: {report['n_utterances']} utterances, {len(soft)} soft files, "
+          f"equal to the in-process evaluate_split: {sum(same)} of {len(same)}")
+    if len(soft) != len(test) or not all(same):
+        raise RuntimeError("cli evaluate: predictions differ from evaluate_split")
+    del state, model
+    torch.cuda.empty_cache()
+
+    scored, _ = cli_run("run_metrics", run_metrics.main,
+                        [*data_args, "--predictions-dir", str(root / "pred")], {})
+    overall = scored["overall"]
+    if not all(np.isfinite(overall[k]["avg"]) for k in ("accuracy", "f1")):
+        raise RuntimeError(f"cli run_metrics: {overall}")
+
+    # reconstruct: VideoVAD, one utterance a step
+    rows, counts = cli_run("reconstruct", reconstruct.main,
+                           [*data_args, "--checkpoint", str(video_dir), "--output-dir",
+                            str(root / "reconstruct")])
+    variant = lstm_fused.infer_variant("none", 1, H, sms)
+    if (len(rows) != len(test) or set(counts) != {variant}
+            or (variant == "none_persist" and counts[variant] != 2 * len(test))
+            or not all(np.isfinite(r["soft"]).all() for r in rows)):
+        raise RuntimeError(f"cli reconstruct: {len(rows)} utterances, launches {counts}")
+
+    # export_serving: the int8-tower step, replayed against the live step
+    art_path = root / "serving.avvadx"
+    cli_run("export_serving", export_serving.main,
+            ["--modality", "av", "--checkpoint", str(av_dir), "--out", str(art_path),
+             "--batch", str(B), "--frames", str(T), "--video-fps", "30", "--tower-int8",
+             *data_args, "--calibrate-utts", str(CLI_CAL_UTTS)])
+    model = build_model("av", **int8_opts)
+    stats, _ = restore(str(av_dir), model, torch.device("cuda"))
+    calibrate_quant_scales(TrainState(model.eval(), None, torch.device("cuda")), model,
+                           AudioVisualSource(str(processed) + "/", "train"), "av",
+                           norm_stats=stats, n_utts=CLI_CAL_UTTS)
+    wave, video, idx = serving_inputs()
+    live = make_waveform_serving_fn(model, t_frames=T, norm_stats=stats,
+                                    video_frame_indices=idx)(wave, video)
+    loaded = ServingArtifact.load(str(art_path))
+    loaded.call(f"b{B}", wave, video)
+    replay, counts = cli_run("export_serving/replay", lambda _: loaded.call(f"b{B}", wave, video),
+                             [], {**serving_launches("none"), conv_fused.KERNEL_NAME: 8,
+                                  stem_fused.NHWC_KERNEL_NAME: 1})
+    check_probs(replay, "cli export_serving replay")
+    if not torch.equal(replay, live):
+        raise RuntimeError(f"cli export_serving: the replay differs from the live step by "
+                           f"{(replay - live).abs().max().item()}")
+    print(f"cli export_serving: replay of {art_path.name} bit-equal to the live step")
+    del loaded, live, replay
+    torch.cuda.empty_cache()
+
+    # serve_server: build_server from a multi-stream artifact of the int8 AV server
+    span = dict(span_wire=True, hop_dft=True, audio_int16=True, native=True,
+                max_backlog_blocks=SERVER_BACKLOG)
+    srv = MultiStreamAVVAD(model, STREAMS, norm_stats=stats, block_frames=BLOCK,
+                           video_fps=30.0, video_uint8=True, **span)
+    ms_path = root / "server.avvadx"
+    export_multistream_server(srv, str(ms_path))
+    del srv
+    args = serve_server.parse_args(["--artifact", str(ms_path), "--port", "0"])
+    server, _ = cli_run("serve_server/build_server", serve_server.build_server, args, {})
+    pcm, cam, up, cuts = server_data()
+    n_out = TICKS * BLOCK
+    try:
+        server.streamer.warmup()
+        reset_counts()
+        got, stats_srv = serve_clients(server, [
+            lambda i=i: av_stream_client(server.address, pcm[i], cam[i], n_out,
+                                         chunk=BLOCK * HOP, frames_per_msg=8, timeout=60,
+                                         video_wire="u8", audio_wire="i16")
+            for i in range(STREAMS)])
+        torch.cuda.synchronize()
+        counts = nonzero_counts()
+    finally:
+        server.close()
+    ticks = stats_srv["ticks"]
+    solo = StreamingAVVAD(model, norm_stats=stats, block_frames=BLOCK, video_uint8=True)
+    worst = 0.0
+    for i in range(STREAMS):
+        solo.reset()
+        for k in range(TICKS):
+            want = solo.feed(cuts[k][i].astype(np.float32), up[i, k * BLOCK:(k + 1) * BLOCK])
+            worst = max(worst, float(np.abs(got[i][k * BLOCK:(k + 1) * BLOCK] - want).max()))
+    line = {"cli": "serve_server/clients", "streams": STREAMS, "ticks": ticks,
+            "wall_s": stats_srv["wall_s"],
+            "launches_per_tick": {k: v / ticks for k, v in counts.items()},
+            "solo_max_abs_diff": worst, "solo_tol": SOLO_TOL["av"]}
+    print(json.dumps(line))
+    if (counts != {conv_fused.KERNEL_NAME: 8 * ticks, stem_fused.NHWC_KERNEL_NAME: ticks}
+            or not worst <= SOLO_TOL["av"]):
+        raise RuntimeError(f"cli serve_server: {line}")
+    del model, solo
+    torch.cuda.empty_cache()
+
+    # stream_demo: one test wav with its lip video through StreamingAVVAD
+    spk, utt = corpus_names("test", 0)
+    wav = processed / "ntcd_timit/Noisy/Babble/-5/test" / spk / f"{utt}.wav"
+    lips = processed / "ntcd_timit/matlab_raw/test" / spk / f"{utt}_upsampled.h5"
+    demo, _ = cli_run("stream_demo", stream_demo.main,
+                      [str(wav), "--video", str(lips), "--checkpoint", str(av_dir), "--mcb"])
+    if not np.isfinite(demo["probs"]).all() or len(demo["probs"]) == 0:
+        raise RuntimeError("cli stream_demo: no probabilities")
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3362,7 +3694,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     video_streaming_phase()
     torch.cuda.empty_cache()
-    corpus_phase()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        route = corpus_phase(tmp)
+        torch.cuda.empty_cache()
+        cli_phase(route, tmp)
     torch.cuda.empty_cache()
     raw_serving_phase()
     torch.cuda.empty_cache()

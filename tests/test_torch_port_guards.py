@@ -223,21 +223,24 @@ def _module_level_imports(path):
 
 
 def test_port_imports_no_optional_package_at_module_level():
-    """h5py and yaml only inside the functions that read or write HDF5 or
-    YAML; matplotlib, cv2, librosa and soundfile nowhere at module level."""
+    """yaml only inside the functions that read or write YAML; matplotlib,
+    cv2, librosa and soundfile nowhere at module level; h5py nowhere at
+    all: HDF5 goes through the port's own hdf5.py."""
     bad = []
     for path in _port_files():
         for mod in _module_level_imports(path):
             if mod.split(".")[0] in ABSENT_ON_CARD:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
-    # the walk does see imports inside functions as function-level
-    assert "h5py" in set(_imported_modules(ROOT / "avvad_tpu_torch/data/records.py"))
+    # no port module imports h5py, not even inside a function
+    assert not [p.relative_to(ROOT) for p in _port_files()
+                if "h5py" in {m.split(".")[0] for m in _imported_modules(p)}]
 
 
 def test_every_port_module_imports_without_h5py_and_yaml():
     """In a fresh interpreter with ``h5py`` and ``yaml`` unimportable, every
-    module of the package (and chip_smoke.py) imports."""
+    module of the package (the command-line twins too) and chip_smoke.py
+    imports."""
     import subprocess
     import sys
 
@@ -256,7 +259,7 @@ def test_every_port_module_imports_without_h5py_and_yaml():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 45
+    assert int(out.stdout.split()[-1]) >= 62
 
 
 def test_import_guard_covers_the_corpus_modules():
@@ -353,3 +356,46 @@ def test_sharded_server_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.MultiStreamVAD(AudioVAD(lstm_hidden_size=8, lstm_layers=1), 2,
                              block_frames=4, mesh=mesh)
+
+
+def test_import_guard_covers_the_cli_modules():
+    """hdf5.py, ops/video.py, utils/ and the command-line twins are in the
+    guard's walk: neither JAX nor an optional package at module level."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    want = {"avvad_tpu_torch/hdf5.py", "avvad_tpu_torch/ops/video.py",
+            *(f"avvad_tpu_torch/utils/{m}.py" for m in (
+                "__init__", "misc", "profiling", "torch_import", "torch_export")),
+            *(f"avvad_tpu_torch/scripts/{m}.py" for m in (
+                "__init__", "_common", *CLI_TWINS))}
+    assert want <= names
+    for rel in want:
+        mods = {x.split(".")[0] for x in _module_level_imports(ROOT / rel)}
+        assert not mods & {*FORBIDDEN, *ABSENT_ON_CARD}, rel
+
+
+CLI_TWINS = {
+    "import_checkpoint": ["--modality", "av", "--torch-checkpoint", "x.pt",
+                          "--output-dir", "out"],
+    "create_train_files": ["--raw-dir", "raw", "--processed-dir", "out"],
+    "train": ["--modality", "av", "--model-dir", "out"],
+    "evaluate": ["--modality", "av", "--checkpoint", "ck", "--output-dir", "out"],
+    "run_metrics": ["--predictions-dir", "out"],
+    "reconstruct": ["--checkpoint", "ck", "--output-dir", "out"],
+    "export_serving": ["--modality", "av", "--checkpoint", "ck", "--out", "a.avvadx"],
+    "serve_server": ["--checkpoint", "ck", "--port", "0"],
+    "stream_demo": ["x.wav"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_TWINS))
+def test_cli_twins_raise_without_a_card(monkeypatch, tmp_path, name):
+    """Each twin runs on the card unless given --device cpu: with no card
+    it raises before it reads or writes anything."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"avvad_tpu_torch.scripts.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(CLI_TWINS[name])
+    assert list(tmp_path.iterdir()) == []

@@ -323,3 +323,14 @@ def eval_model(int8: bool):
         for b, v in zip(bufs, scales):
             b.fill_(float(v))
     return model
+
+
+def cli_main(name: str, argv: list) -> dict:
+    """A command-line twin's ``main(argv)`` on this rank (it forms the group
+    itself under ``--data-parallel``) -> the numbers and dicts of what it
+    returns (``train``: the last epoch's metrics; ``evaluate``: the
+    report)."""
+    import importlib
+
+    out = importlib.import_module(f"avvad_tpu_torch.scripts.{name}").main(argv)
+    return {k: v for k, v in out.items() if isinstance(v, (int, float, dict))}
