@@ -178,6 +178,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
     int8 AV server, 32 localhost clients, every stream within 5e-4 of a
     solo streamer, K3 1 and K2 8 a tick; stream_demo on one wav and its lip
     video;
+15b. the complete-corpus rehearsal (rehearse_complete's stages at the JAX
+    script's defaults): a raw tree of 20 speakers x 10 utterances with the
+    6-noise x 3-SNR grid (4,000 files, the .mat files by hdf5.py), the
+    build with one pool of workers, one audio and one AV epoch (AVVAD, MCB
+    1024, 2 x LSTM 1024, ResNet-18 trained; 2,520 train and 540
+    validation items; the persistent K1d / K1e 2 + 2 a train batch, K1a 2
+    a validation batch), evaluate + run_metrics for audio and AV over the
+    540-item test grid (K1a 2 a batch; all 18 conditions scored), the
+    files, seconds, x real time and launches of each step in one
+    {"rehearsal": ...} line; the AV evaluate under torch.profiler (idle
+    share); the AV test split with the static-int8 tower and int8 state
+    (K3 1, K2 8, K1b 2 a batch) against the float predictions through
+    compare_predictions, held to the quantization gate (mean |dp| and hard
+    flips each under 5 %), and its controls (the calibrated scales x0 or
+    x1/8), which must fail it; summarize_training on both model dirs; the device
+    STFT against the host one over the test split's clean wavs (5e-3); the
+    upsampling QA held to the JAX script's rule on diffs computed from the
+    raw files; the figure twins, which raise an ImportError naming
+    matplotlib or cv2 where it is missing; one {"rehearsal": "phase", ...}
+    line;
 16. RawAudioVAD serving (WaveNet encoder on cuDNN convolutions, 2 x LSTM
     1024 as the plain loop, bf16, out_frames 512) through
     make_waveform_serving_fn at scripts/bench_modalities.py's shape (B=64,
@@ -2236,28 +2256,15 @@ def corpus_camera(rng, n: int) -> np.ndarray:
     return ((up - lo) / (hi - lo) * 255.0).astype(np.float32)
 
 
-def corpus_dct(rng, n: int) -> np.ndarray:
-    """(n, 4489) DCT coefficients of smooth low-frequency fields: the raw
-    corpus's ``.mat`` content (scripts/synth_complete_corpus.py)."""
-    i, j = np.meshgrid(np.arange(67), np.arange(67), indexing="ij")
-    envelope = np.exp(-(i + j) / 6.0).ravel()
-    base = rng.normal(size=4489)
-    frames = np.empty((n, 4489), np.float32)
-    for f in range(n):
-        base = 0.9 * base + 0.45 * rng.normal(size=4489)
-        frames[f] = base * envelope * 120.0
-    frames[:, 0] += 4000.0
-    return frames
-
-
 def write_raw_corpus(raw: Path, sizes: dict, seed: int = 0, dur: tuple = CORPUS_DUR) -> None:
     """A raw NTCD-TIMIT tree under ``raw`` in the corpus's layout
     (scripts/synth_complete_corpus.py): for each split of ``sizes`` the
     utterances of ``SyntheticCorpus``, clean and noisy wavs and the video
     as a DCT ``.mat`` (HDF5, written by the port's ``hdf5``) file at 30
-    fps."""
+    fps, its fields those of the synth_complete_corpus twin."""
     from avvad_tpu_torch import hdf5
     from avvad_tpu_torch.processing import write_wav
+    from avvad_tpu_torch.scripts.synth_complete_corpus import synth_dct_video
 
     noisy_base = raw / "ntcd_timit/u/drspeech/data/TCDTIMIT/Noisy_TCDTIMIT/Babble/-5/volunteers"
     for split, n in sizes.items():
@@ -2274,7 +2281,7 @@ def write_raw_corpus(raw: Path, sizes: dict, seed: int = 0, dur: tuple = CORPUS_
             write_wav(str(dirs[1] / f"{utt}.wav"), clean, CORPUS_FS)
             write_wav(str(dirs[2] / f"{utt}.wav"), noisy, CORPUS_FS)
             with hdf5.File(dirs[0] / f"{utt}.mat", "w") as f:
-                f.create_dataset("data", data=corpus_dct(rng, int(np.ceil(durs[i] * 30))))
+                f.create_dataset("data", data=synth_dct_video(rng, int(np.ceil(durs[i] * 30))))
 
 
 def hdf5_fixture_check() -> dict:
@@ -3639,6 +3646,332 @@ def cli_phase(route: dict, tmp: str) -> None:
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- the complete-corpus rehearsal --------------------------------------------
+
+# the rehearsal's tree at the JAX script's defaults: 14 / 3 / 3 speakers x 10
+# utterances, 6 noises x 3 SNRs
+REHEARSAL_UTTS = {"train": 140, "validation": 30, "test": 30}
+REHEARSAL_CONDITIONS = 18
+# the quantization gate on the trained AV model: the static-int8 tower and
+# int8 state against the float run, compare_predictions' mean |dp| and share
+# of hard flips each under its limit (readings on the H100, four runs: mean
+# 0.0056-0.0157, flips 0.59-1.64 %; the AV epoch is not deterministic). Its
+# controls, the same run with every calibrated amax multiplied by a factor
+# (x0: the scales before calibration), must fail it (readings: x0 mean 0.200,
+# flips 19.8 %; x1/8 0.192-0.301, 16.2-26.9 %). Scales too large are not
+# caught every time: x8 read 8.3 % and 3.1 %, x2 and x1/2 2.9-3.0 %
+INT8_GATE = {"mean": 0.05, "flip_share": 0.05}
+INT8_CONTROL_FACTORS = (0.0, 0.125)
+
+
+def rehearsal_expect(kind: str, batches: dict, sms: int) -> dict:
+    """The launches of a rehearsal step: a training epoch (K1d / K1e 2 + 2 a
+    train batch, K1a 2 a validation batch at B=16) or a float evaluate (K1a
+    2 a batch at B=8), by the routes ``persistent_plan`` picks."""
+    from avvad_tpu_torch.ops import lstm_fused
+
+    if kind == "train":
+        expect = {"fwd_train_persist": 2 * batches["train"], "bwd_persist": 2 * batches["train"]}
+        variant = lstm_fused.infer_variant("none", CORPUS_TRAIN_B, H, sms)
+        expect[variant] = expect.get(variant, 0) + 2 * batches["validation"]
+        return expect
+    return {lstm_fused.infer_variant("none", CORPUS_EVAL_B, H, sms): 2 * batches["test"]}
+
+
+def upsampling_qa(data: str) -> dict:
+    """The upsampling QA twin (no ``--figures``) over the rehearsal's test
+    split, its verdict held to the JAX script's rule (|diff| <= 2) on diffs
+    computed here from the raw files: "all aligned" where every utterance
+    keeps the rule, else the exit that names how many do not -> the
+    counts."""
+    from avvad_tpu_torch.datasets import speech_list, video_list
+    from avvad_tpu_torch.processing import read_wav
+    from avvad_tpu_torch.processing.stft import n_stft_frames
+    from avvad_tpu_torch.processing.video import fps_resample_indices, read_mat_dct
+    from avvad_tpu_torch.scripts import visualization_video_upsampling
+
+    raw = os.path.join(data, "complete", "raw") + os.sep
+    diffs = {}
+    for mat, wav in zip(video_list(raw, "test"), speech_list(raw, "test")[0]):
+        n_up = len(fps_resample_indices(len(read_mat_dct(raw + mat)), 30.0, FRAME_RATE))
+        diffs[mat] = n_up - n_stft_frames(len(read_wav(raw + wav)[0]))
+    bad = sum(abs(d) > 2 for d in diffs.values())
+    t0 = time.perf_counter()
+    try:
+        got = visualization_video_upsampling.main(["--data-root", data, "--dataset-size",
+                                                   "complete"])
+        verdict = "all aligned"
+    except SystemExit as e:
+        if e.code != f"{bad} misaligned utterances":
+            raise
+        got, verdict = None, e.code
+    wall = time.perf_counter() - t0
+    if (bad == 0) != (verdict == "all aligned") or (got is not None and got != diffs):
+        raise RuntimeError(f"upsampling QA: {verdict}, diffs {diffs}")
+    hist = {f"{d:+d}": sum(v == d for v in diffs.values()) for d in sorted(set(diffs.values()))}
+    print(f"upsampling QA over {len(diffs)} test utterances in {wall:.2f} s: {verdict} "
+          f"(the JAX script's rule |diff| <= 2; upsampled video minus STFT frames: {hist})")
+    return {"utterances": len(diffs), "aligned": len(diffs) - bad, "verdict": verdict,
+            "diff_histogram": hist}
+
+
+def figure_twins_phase(data: str, preds: str) -> dict:
+    """``run_metrics --figures``, ``visualization_audio`` and
+    ``visualization_video`` on the rehearsal's tree: where matplotlib or cv2
+    is missing (the card's machine has cv2 and not matplotlib), each twin
+    that needs it raises an ImportError that names it before it writes
+    anything; where it is present, the twin runs (run_metrics --figures into
+    a copy of the predictions)."""
+    import importlib.util
+    import shutil
+
+    from avvad_tpu_torch.scripts import run_metrics, visualization_audio, visualization_video
+
+    present = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "cv2")}
+    out = Path(data) / "figures"
+    figs = str(out / "preds")
+    common = ["--data-root", data, "--dataset-size", "complete"]
+    calls = {"run_metrics --figures": ("matplotlib", figs, lambda: run_metrics.main(
+                 [*common, "--predictions-dir", figs, "--figures"])),
+             "visualization_audio": ("matplotlib", str(out / "audio"),
+                                     lambda: visualization_audio.main(
+                                         [*common, "--output-dir", str(out / "audio")])),
+             "visualization_video": ("cv2", str(out / "video"),
+                                     lambda: visualization_video.main(
+                                         [*common, "--output-dir", str(out / "video")]))}
+    result = {}
+    for name, (package, written, call) in calls.items():
+        if present[package]:
+            if name.startswith("run_metrics"):
+                shutil.copytree(preds, figs)
+            t0 = time.perf_counter()
+            call()
+            n = sum(len(fs) for _, _, fs in os.walk(written))
+            result[name] = f"ran in {time.perf_counter() - t0:.1f} s, {n} files"
+        else:
+            try:
+                call()
+            except ImportError as e:
+                if package not in str(e) or os.path.exists(written):
+                    raise
+                result[name] = f"raised ImportError: {e}"
+            else:
+                raise RuntimeError(f"{name} ran without {package}")
+        print(f"figure twin {name}: {result[name]}")
+    return {"packages_present": present, "twins": result}
+
+
+def int8_gate_failures(gate: dict) -> list:
+    """compare_predictions' readings -> the INT8_GATE limits they break."""
+    return [f"{k} {gate[k]:.4g} >= {lim}" for k, lim in INT8_GATE.items()
+            if not gate[k] < lim]
+
+
+@contextlib.contextmanager
+def scaled_calibration(factor: float):
+    """The evaluate twin's static-int8 calibration with every recorded amax
+    (the tower's ``q_*`` buffers) multiplied by ``factor`` afterwards: a
+    mis-set calibration, the gate's control."""
+    import avvad_tpu_torch.evaluate as ev
+
+    real = ev.calibrate_quant_scales
+
+    def mis_set(state, model, *args, **kw):
+        out = real(state, model, *args, **kw)
+        scales = [buf for name, buf in model.named_buffers()
+                  if name.rsplit(".", 1)[-1] in ("q_stem", "q_in", "q1", "q_out")]
+        if not scales:
+            raise RuntimeError("scaled_calibration: no int8 scale buffers")
+        with torch.no_grad():
+            for buf in scales:
+                buf.mul_(factor)
+        return out
+
+    ev.calibrate_quant_scales = mis_set
+    try:
+        yield
+    finally:
+        ev.calibrate_quant_scales = real
+
+
+def rehearsal_phase(tmp: str) -> None:
+    """The complete-corpus rehearsal at the JAX script's defaults, through
+    the rehearse_complete twin's stages with the launch counters read
+    around each: the raw tree (6 noises x 3 SNRs x 200 utterances), the
+    build (one pool of workers), one audio and one AV epoch (AVVAD: MCB
+    1024, 2 x LSTM 1024, ResNet-18 trained), evaluate + run_metrics for
+    audio and AV (float tower) over the 540-item test grid; then the AV
+    test split again with the static-int8 tower on K3 / K2 and the int8
+    state (K1b), held to the float predictions by compare_predictions
+    within INT8_GATE, and the gate's controls, which must fail it;
+    summarize_training on both model dirs; the device STFT check over the
+    test split's clean wavs; the upsampling QA; the figure twins. One
+    {"rehearsal": ...} line a step and one for the phase."""
+    from avvad_tpu_torch.data import AudioSequenceSource, AudioVisualSource, DataLoader
+    from avvad_tpu_torch.datasets import speech_list
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.processing import read_wav, stft
+    from avvad_tpu_torch.processing.audio_io import peak_normalize
+    from avvad_tpu_torch.scripts import (compare_predictions, evaluate, rehearse_complete,
+                                         summarize_training)
+    from avvad_tpu_torch.scripts.visualization_audio import device_stft_check
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    root = Path(tmp) / "rehearsal"
+    args = rehearse_complete.build_parser().parse_args(
+        ["--dir", str(root), "--workers", str(CORPUS_BUILD_WORKERS)])
+    data, processed = root / "data", str(root / "data" / "complete" / "processed") + "/"
+    stages = rehearse_complete.stages(args)
+    lines, batches, frames, prof = {}, {}, {}, {}
+    for i, (key, banner, fn) in enumerate(stages, 1):
+        print(f"=== rehearsal [{i}/{len(stages)}] {banner} ===")
+        expect = {}
+        if key.startswith("train_"):
+            expect = rehearsal_expect("train", batches[key[6:]], sms)
+        elif key in ("audio", "av"):
+            expect = rehearsal_expect("evaluate", batches[key], sms)
+        reset_counts()
+        t0 = time.perf_counter()
+        if key == "av":
+            # the device's share of the AV evaluate: this run under torch.profiler
+            real_evaluate = evaluate.main
+
+            def profiled(argv):
+                got = {}
+                prof.update(profile_step(lambda: got.update(report=real_evaluate(argv))))
+                return got["report"]
+
+            evaluate.main = profiled
+            try:
+                out = fn()
+            finally:
+                evaluate.main = real_evaluate
+        else:
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = nonzero_counts()
+        line = {"rehearsal": key, "wall_s": wall, "launches": counts}
+        if key == "synthesize":
+            line["raw_files"] = out["raw_files"]
+            want = sum(REHEARSAL_UTTS.values()) * (2 + REHEARSAL_CONDITIONS)
+            if out["raw_files"] != want:
+                raise RuntimeError(f"rehearsal: {out['raw_files']} raw files, expected {want}")
+        elif key == "build":
+            line.update(build_s=out["seconds"], processed_files=out["processed_files"],
+                        built=out["counts"])
+            for modality, cls in (("audio", AudioSequenceSource), ("av", AudioVisualSource)):
+                srcs = {s: cls(processed, s, "complete") for s in REHEARSAL_UTTS}
+                for s, src in srcs.items():
+                    if len(src) != REHEARSAL_UTTS[s] * REHEARSAL_CONDITIONS:
+                        raise RuntimeError(f"rehearsal {modality} {s}: {len(src)} items")
+                batches[modality] = {s: len(DataLoader(src, batch_size=(
+                    CORPUS_EVAL_B if s == "test" else CORPUS_TRAIN_B)))
+                    for s, src in srcs.items()}
+                frames[modality] = {s: sum(map(src.probe_length, range(len(src))))
+                                    for s, src in srcs.items()}
+            line["items"] = {s: len(AudioSequenceSource(processed, s, "complete"))
+                             for s in REHEARSAL_UTTS}
+            line["batches"] = batches["av"]
+        elif key.startswith("train_"):
+            modality = key[6:]
+            log = (root / modality / "output_epoch.log").read_text()
+            epoch_s = float(log.split("[Time]")[1].split("s")[0])
+            seconds = (frames[modality]["train"] + frames[modality]["validation"]) / FRAME_RATE
+            line.update(epoch_s=epoch_s, audio_s=seconds, x_real_time=seconds / epoch_s,
+                        train_loss=float(out["train"]["loss"]),
+                        valid_loss=float(out["valid"]["loss"]))
+        else:
+            report, stats = out["evaluate"], out["metrics"]
+            conds = {p.relative_to(root / f"{key}_preds").parts[2:4]
+                     for p in (root / f"{key}_preds").rglob("*_soft.npy")}
+            line.update(rt_factor=report["rt_factor"], elapsed_s=report["elapsed_s"],
+                        n_utterances=report["n_utterances"], conditions=len(conds),
+                        snr_groups=sorted(stats["by_snr_db"]),
+                        noise_groups=sorted(stats["by_noise_type"]),
+                        overall={k: v["avg"] for k, v in stats["overall"].items()},
+                        under_torch_profiler=key == "av")
+            if (len(conds) != REHEARSAL_CONDITIONS or len(stats["by_snr_db"]) != 3
+                    or len(stats["by_noise_type"]) != 6):
+                raise RuntimeError(f"rehearsal {key}: {len(conds)} conditions scored")
+        print(json.dumps(line))
+        if counts != {k: v for k, v in expect.items() if v}:
+            raise RuntimeError(f"rehearsal {key}: launches {counts}, expected {expect}")
+        lines[key] = line
+
+    av_args = ["--modality", "av", "--data-root", str(data), "--dataset-size", "complete",
+               "--split", "test", "--checkpoint", str(root / "av"), "--lstm-hidden", str(H)]
+    print(f"rehearsal AV evaluate under torch.profiler: wall "
+          f"{prof['profiled_step_wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} "
+          f"ms, idle share {prof['device_idle_share']:.4f}")
+
+    # the quantization gate: the int8 tower and state against the float run
+    cal = {lstm_fused.infer_variant("int8", CLI_CAL_B, H, sms): 2 * -(-CLI_CAL_UTTS // CLI_CAL_B)}
+    n_test = batches["av"]["test"]
+    expect = {stem_fused.NHWC_KERNEL_NAME: n_test, conv_fused.KERNEL_NAME: 8 * n_test}
+    variant = lstm_fused.infer_variant("int8", CORPUS_EVAL_B, H, sms)
+    expect[variant] = 2 * n_test + cal.get(variant, 0)
+    expect.update({k: v for k, v in cal.items() if k != variant})
+    int8_args = [*av_args, "--tower-int8", "--tower-quant-mode", "static", "--tower-pallas",
+                 "--lstm-state-quant", "int8"]
+    int8_report, _ = cli_run("rehearsal/evaluate int8", evaluate.main,
+                             [*int8_args, "--output-dir", str(root / "av_int8_preds")], expect)
+    gate = compare_predictions.main([str(root / "av_preds"), str(root / "av_int8_preds")])
+    broken = int8_gate_failures(gate)
+    print(f"quantization gate (mean |dp| and hard-flip share under {INT8_GATE}): "
+          f"{'passed' if not broken else 'FAILED: ' + ', '.join(broken)}")
+    if gate["utterances"] != int8_report["n_utterances"] or broken:
+        raise RuntimeError(f"rehearsal compare_predictions: {gate}")
+    # the gate's controls: the same int8 run with mis-set calibration scales
+    controls = {}
+    for factor in INT8_CONTROL_FACTORS:
+        out_dir = str(root / f"av_int8_x{factor}_preds")
+        with scaled_calibration(factor):
+            cli_run(f"rehearsal/evaluate int8, scales x{factor}", evaluate.main,
+                    [*int8_args, "--output-dir", out_dir], expect)
+        control = controls[f"x{factor}"] = compare_predictions.main(
+            [str(root / "av_preds"), out_dir])
+        control["gate_breaks"] = int8_gate_failures(control)
+        print(f"quantization gate control (scales x{factor}): "
+              f"{control['gate_breaks'] or 'PASSED the gate'}")
+        if not control["gate_breaks"]:
+            raise RuntimeError(f"rehearsal: scales x{factor} passed the quantization gate")
+
+    curves = {m: summarize_training.main([str(root / m)]) for m in ("audio", "av")}
+
+    # the device STFT (fp32 DFT matmul, TF32 off) against the host one
+    raw = str(data / "raw") + "/"
+    clean = speech_list(raw, "test")[0]
+    t0 = time.perf_counter()
+    worst = 0.0
+    for rel in clean:
+        x, fs = read_wav(raw + rel)
+        x = peak_normalize(x)
+        worst = max(worst, device_stft_check(x, fs, stft(x, fs=fs), "cuda"))
+    stft_s = time.perf_counter() - t0
+    print(f"device STFT check: {len(clean)} clean test wavs, largest |re|/|im| difference "
+          f"{worst:.3e} (atol 5e-3), {stft_s:.2f} s")
+
+    (data / "complete" / "raw").symlink_to(Path("..") / "raw")
+    qa = upsampling_qa(str(data))
+    figures = figure_twins_phase(str(data), str(root / "av_preds"))
+    print(json.dumps({"rehearsal": "phase", "wall_s": time.perf_counter() - t_phase,
+                      "steps": {k: {f: v for f, v in line.items() if f != "rehearsal"}
+                                for k, line in lines.items()},
+                      "av_evaluate_profiled": {k: prof[k] for k in (
+                          "profiled_step_wall_ms", "device_busy_ms", "device_idle_share",
+                          "top_kernels")},
+                      "int8_evaluate": {k: int8_report[k] for k in ("n_utterances", "n_frames",
+                                                                    "elapsed_s", "rt_factor")},
+                      "int8_vs_float": gate,
+                      "int8_controls": controls,
+                      "curves": {m: c["final"] for m, c in curves.items()},
+                      "device_stft": {"wavs": len(clean), "max_abs_diff": worst,
+                                      "atol": 5e-3},
+                      "upsampling_qa": qa, "figures": figures}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3698,6 +4031,8 @@ def main() -> None:
         route = corpus_phase(tmp)
         torch.cuda.empty_cache()
         cli_phase(route, tmp)
+        torch.cuda.empty_cache()
+        rehearsal_phase(tmp)
     torch.cuda.empty_cache()
     raw_serving_phase()
     torch.cuda.empty_cache()

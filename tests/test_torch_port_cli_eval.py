@@ -111,8 +111,12 @@ def test_run_metrics_matches_jax(env, tmp_path):
 
     walk(got, want)
     assert stats["overall"].keys() == want["overall"].keys()
-    with pytest.raises(SystemExit, match="--figures"):
-        run_metrics.main([*args, "--predictions-dir", tdir, "--device", "cpu", "--figures"])
+    # --figures renders one figure an utterance (pixel for pixel JAX's:
+    # tests/test_torch_port_figures.py)
+    run_metrics.main([*args, "--predictions-dir", tdir, "--device", "cpu", "--figures"])
+    n_soft = sum(f.endswith("_y_hat_soft.npy") for _, _, fs in os.walk(tdir) for f in fs)
+    n_png = sum(f.endswith("_hard_mask.png") for _, _, fs in os.walk(tdir) for f in fs)
+    assert n_png == n_soft > 0
 
 
 def test_reconstruct_matches_jax(env):

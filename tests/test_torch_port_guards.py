@@ -384,6 +384,8 @@ CLI_TWINS = {
     "export_serving": ["--modality", "av", "--checkpoint", "ck", "--out", "a.avvadx"],
     "serve_server": ["--checkpoint", "ck", "--port", "0"],
     "stream_demo": ["x.wav"],
+    "visualization_audio": ["--check-device-stft", "--output-dir", "out"],
+    "rehearse_complete": ["--dir", "out"],
 }
 
 
@@ -399,3 +401,50 @@ def test_cli_twins_raise_without_a_card(monkeypatch, tmp_path, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(CLI_TWINS[name])
     assert list(tmp_path.iterdir()) == []
+
+
+# --- the last slice: figures, QA, comparison and synthesis scripts ---
+
+LAST_SLICE = ("visualization", *(f"scripts/{m}" for m in (
+    "visualization_audio", "visualization_video", "visualization_video_upsampling",
+    "compare_predictions", "summarize_training", "synth_noisy_testset",
+    "synth_complete_corpus", "rehearse_complete")))
+
+
+def test_import_guard_covers_the_last_slice():
+    """visualization.py and the eight new twins are in the guard's walk, and
+    none imports JAX, matplotlib, cv2, h5py or yaml at module level."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    want = {f"avvad_tpu_torch/{m}.py" for m in LAST_SLICE}
+    assert want <= names
+    for rel in want:
+        mods = {x.split(".")[0] for x in _module_level_imports(ROOT / rel)}
+        assert not mods & {*FORBIDDEN, *ABSENT_ON_CARD}, rel
+
+
+def test_port_imports_without_figure_packages():
+    """In a fresh interpreter with ``h5py``, ``yaml``, ``matplotlib`` and
+    ``cv2`` unimportable, visualization, the new twins, every other module
+    and chip_smoke.py import, and none of those packages is loaded."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for m in ('h5py', 'yaml', 'matplotlib', 'cv2'):\n"
+        "    sys.modules[m] = None\n"
+        "import avvad_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(avvad_tpu_torch.__path__,"
+        " 'avvad_tpu_torch.')]\n"
+        f"want = {['avvad_tpu_torch.' + m.replace('/', '.') for m in LAST_SLICE]!r}\n"
+        "assert set(want) <= set(names), set(want) - set(names)\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'h5py', 'yaml', 'matplotlib', 'cv2') and sys.modules[m] is not None]\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 71
