@@ -230,6 +230,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
     of the unmeshed run, K3 1, K2 8 and K1a 2 a batch and a rank. One
     {"mesh": ...} line each, with ms, peak memory and launches; two ranks
     on one card time-slice it, so these times are no scaling figure;
+17b. the timers (avvad_tpu_torch/scripts/bench*.py), each twin's main in
+    process at full width with short loops (ITERS=2, REPS=2, 8 ticks, one
+    A/B round), the launch counters read around each and added to the
+    kernels line's rows, one {"timers": ...} line each: bench's serving
+    ladder (AVVAD bf16, static-int8 tower on K3 + 8 x K2, B=64, T=512;
+    shipped, lstm_bf16, lstm_int8, hop_dft, then +mcb_hoist on the
+    winner), the train matrix (AV frozen and trained, audio, video; K1d /
+    K1e 2 + 2 a step), the kernel tripwire at N=512 (the fused trunk and K3
+    alone against the unfused route and plain K3), bench_modalities (audio,
+    wavenet, video int8), bench_streaming (--av --av-int8 --av-u8
+    --audio-int16), bench_wire_ab (audio, then AV) and
+    bench_artifact_overhead (B=8, T=64). Every record parses with a finite,
+    positive value; launches a call as the kernels' table says (whole runs
+    where the count is exact, one check call otherwise); each timed
+    serving program's first output within 1e-4 of its plain route, the
+    tripwire's fused trunk bit for bit; the phase's wall seconds;
 18. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init; nothing of JAX runs.
@@ -3413,6 +3429,278 @@ def mesh_phase(int8_model) -> None:
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --- the timers (avvad_tpu_torch/scripts/bench*.py) ---------------------------
+
+# short loops: every twin at full width, each program timed a few times
+TIMER_ITERS, TIMER_REPS, TIMER_TICKS, TIMER_TRIPWIRE_N = 2, 2, 8, 512
+# a timed serving program's first output against the same program on the
+# plain K1 / K2 / K3 versions (PROB_TOL's readings); the tripwire's fused
+# trunk against plain K2 / K3: bit for bit
+TIMER_PROB_TOL = 1e-4
+# launch counters -> rows of the kernels line
+ROW_OF = {"int8_basic_block": "k2", "stem_epilogue_pool_nhwc": "k3_nhwc",
+          "stem_epilogue_pool": "k3"}
+
+
+@contextlib.contextmanager
+def bench_env(**env):
+    """os.environ with ``env`` set (None: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, str(v))
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+
+
+def add_launches(rows: dict, counts: dict) -> None:
+    """The timed runs' launches added to the kernels line's rows."""
+    for name, n in counts.items():
+        key = ROW_OF.get(name, name)
+        if n and key in rows:
+            rows[key]["launches"] += n
+
+
+def check_records(records: list, label: str) -> None:
+    """Every record has a finite, positive value."""
+    if not records:
+        raise RuntimeError(f"timers {label}: no record")
+    for rec in records:
+        json.loads(json.dumps(rec))
+        v = rec.get("value")
+        if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0):
+            raise RuntimeError(f"timers {label}: bad record {rec}")
+
+
+def first_output_check(fn, expect: dict, label: str, plain: bool = True) -> float:
+    """One call of ``fn()`` with the counters at 0: its launches must be
+    ``expect``; its output, finite, against the same call on the plain
+    K1 / K2 / K3 versions -> max |diff|."""
+    from avvad_tpu_torch.ops import lstm_fused
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), expect, label)
+    out = torch.as_tensor(out).float()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{label}: output not finite")
+    if not plain:
+        return 0.0
+    with plain_k2_k3(), plain_inference(lstm_fused):
+        ref = torch.as_tensor(fn()).float()
+    err = (out - ref).abs().max().item()
+    if err > TIMER_PROB_TOL:
+        raise RuntimeError(f"{label}: first output vs plain {err} (tol {TIMER_PROB_TOL})")
+    return err
+
+
+def timer_run(rows: dict, name: str, fn, expect: dict | None = None):
+    """A twin's ``main`` with the counters at 0 just before -> its records;
+    the launches of its timed runs added to ``rows`` and held to ``expect``
+    where given; one {"timers": ...} line. ``fn(checked)`` runs the twin;
+    ``checked(check)`` wraps a check as the twin's callback: the launches
+    so far are taken first, and the check's own are cleared after it."""
+    reset_counts()
+    seen: dict = {}
+
+    def take():
+        torch.cuda.synchronize()
+        counts = nonzero_counts()
+        add_launches(rows, counts)
+        for k, v in counts.items():
+            seen[k] = seen.get(k, 0) + v
+        reset_counts()
+
+    def checked(check):
+        def callback(*args):
+            take()
+            check(*args)
+            reset_counts()
+        return callback
+
+    t0 = time.perf_counter()
+    records = fn(checked)
+    take()
+    wall = time.perf_counter() - t0
+    records = records if isinstance(records, list) else [records]
+    print(json.dumps({"timers": name, "wall_s": wall, "launches": seen,
+                      "records": records}))
+    if expect is not None and seen != {k: v for k, v in expect.items() if v}:
+        raise RuntimeError(f"timers {name}: launches {seen}, expected {expect}")
+    return records
+
+
+def timers_phase(rows: dict) -> None:
+    """Each timer twin's main at full width with short loops: bench's serving
+    ladder (int8 tower on K3 + 8 x K2; the five candidates), the train
+    matrix, the tripwire at N=512, the three modalities, the streaming ticks
+    (--av --av-int8 --av-u8 --audio-int16), the wire A/B (audio and AV) and
+    the artifact overhead. Every record parses with a finite, positive
+    value; the launches a timed call are held to the table of the kernels
+    (whole runs where the count is exact, one check call otherwise); each
+    timed serving program's first output within TIMER_PROB_TOL of its plain
+    route, the tripwire's fused trunk bit for bit."""
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.scripts import (bench, bench_artifact_overhead, bench_modalities,
+                                         bench_streaming, bench_wire_ab)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k2, k3 = conv_fused.KERNEL_NAME, stem_fused.NHWC_KERNEL_NAME
+    tower = {k2: 8, k3: 1}
+    loops = dict(AVVAD_BENCH_ITERS=TIMER_ITERS, AVVAD_BENCH_REPS=TIMER_REPS)
+
+    # (1) serving: the AUTO ladder, shipped config
+    def serving(checked):
+        def check(sb, serves):
+            for name, serve in serves.items():
+                sq = {"lstm_bf16": "bf16", "lstm_int8": "int8"}.get(name.split("+")[0],
+                                                                     "none")
+                err = first_output_check(lambda s=serve: s(sb.wave, sb.video),
+                                         {**tower, sq + "_persist": 2},
+                                         f"timers bench/{name}")
+                print(f"timers bench/{name}: first output vs plain K1/K2/K3 {err:.2e}")
+
+        with bench_env(**loops, AVVAD_BENCH_WRITE_HISTORY=None):
+            return bench.serving_main(dev, on_serving=checked(check))
+
+    rec = timer_run(rows, "bench", serving)
+    check_records(rec, "bench")
+    torch.cuda.empty_cache()
+
+    # (2) the train matrix: 1 + REPS x ITERS steps a config, K1d / K1e 2 + 2 each
+    steps = 4 * (1 + TIMER_REPS * TIMER_ITERS)
+    with bench_env(**loops):
+        rec = timer_run(rows, "bench --train-matrix",
+                        lambda _c: bench.main(["--train-matrix"]),
+                        {"fwd_train_persist": 2 * steps, "bwd_persist": 2 * steps})
+    check_records(rec[0]["configs"], "train matrix")
+    torch.cuda.empty_cache()
+
+    # (3) the tripwire: the fused trunk (K3 + 8 K2 a call) and K3 alone, each
+    # 1 + REPS x ITERS calls; the unfused route and the plain K3 launch nothing
+    calls = 1 + TIMER_REPS * TIMER_ITERS
+    trip = {}
+
+    def tripwire(checked):
+        def keep(trunk, x):
+            trip.update(trunk=trunk, x=x)
+
+        return bench.kernel_tripwire_main(dev, on_trunk=checked(keep))
+
+    with bench_env(**loops, AVVAD_TRIPWIRE_N=TIMER_TRIPWIRE_N):
+        rec = timer_run(rows, "bench --kernel-tripwire", tripwire,
+                        {k2: 8 * calls, k3: 2 * calls})
+    rows_trip = rec[0]["results"]
+    check_records([{"value": r[k]} for r in rows_trip for k in ("kernel_ms", "unfused_ms")],
+                  "tripwire")
+    trunk, x = trip["trunk"], trip["x"]
+    trunk.stages_pallas = True
+    with torch.inference_mode():
+        fused = trunk(x)
+        with plain_k2_k3():
+            plain = trunk(x)
+    if not torch.equal(fused, plain):
+        raise RuntimeError(f"tripwire: fused trunk vs plain K2/K3 "
+                           f"{(fused - plain).abs().max().item()}")
+    print(f"timers tripwire: fused trunk features (N={TIMER_TRIPWIRE_N}) bit for bit "
+          "equal to plain K2/K3")
+    del trip, trunk, x
+    torch.cuda.empty_cache()
+
+    # (4) the modalities
+    lstm = {"none_persist": 2}
+    expect_cfg = {"audio": lstm, "wavenet": {}, "video": {**tower, **lstm}}
+
+    def modalities(checked):
+        def check(name, serve, inputs):
+            err = first_output_check(lambda: serve(*inputs), expect_cfg[name],
+                                     f"timers modalities/{name}", plain=name != "wavenet")
+            print(f"timers modalities/{name}: first output vs plain {err:.2e}")
+
+        return bench_modalities.main(["--iters", str(TIMER_ITERS), "--rounds",
+                                      str(TIMER_REPS)], on_config=checked(check))
+
+    # whole run: 3 + REPS x ITERS calls a configuration; the video model's
+    # calibration runs its LSTM once at B=2
+    calls = 3 + TIMER_REPS * TIMER_ITERS
+    expect = {k2: 8 * calls, k3: calls}
+    for variant, n in ((lstm_fused.infer_variant("none", B, H, sms), 4 * calls),
+                       (lstm_fused.infer_variant("none", 2, H, sms), 2)):
+        expect[variant] = expect.get(variant, 0) + n
+    check_records(timer_run(rows, "bench_modalities", modalities, expect), "modalities")
+    torch.cuda.empty_cache()
+
+    # (5) the streaming ticks: the AV int8 tick K3 1 + K2 8; the audio tick
+    # (a carried plain loop) nothing
+    def streaming(checked):
+        def check(kind, srv):
+            if kind != "av":
+                return
+            chunk, chunk_i, vchunk = bench_streaming.stream_chunks(srv.block_frames)
+
+            def tick():
+                srv.reset()
+                for i in range(srv.n):
+                    srv.feed(i, pcm=np.concatenate([chunk_i, chunk_i]), video_frames=vchunk)
+                out = srv.tick(fetch=True)
+                return np.stack([out[i] for i in range(srv.n)])
+
+            err = first_output_check(tick, tower, "timers streaming/av")
+            print(f"timers streaming/av: a tick vs plain K2/K3 {err:.2e}")
+
+        return bench_streaming.main(["--av", "--av-int8", "--av-u8", "--audio-int16",
+                                     "--ticks", str(TIMER_TICKS)], on_server=checked(check))
+
+    # whole run: the AV ticks (sync and pipelined, 1 + TICKS each) and the
+    # calibration's LSTM at B=1; the audio ticks launch nothing
+    ticks = 2 * (1 + TIMER_TICKS)
+    check_records(timer_run(rows, "bench_streaming", streaming,
+                            {k2: 8 * ticks, k3: ticks,
+                             lstm_fused.infer_variant("none", 1, H, sms): 2}), "streaming")
+    torch.cuda.empty_cache()
+
+    # (6) the wire A/B, audio then AV (K3 1 + K2 8 a tick; 2 arms x (a warm
+    # round and one timed round) x (1 + TICKS) ticks; each arm's calibration
+    # runs the model once, its LSTM on the inference kernel at B=1)
+    ab = ["--ticks", str(TIMER_TICKS), "--rounds", "1"]
+    check_records(timer_run(rows, "bench_wire_ab", lambda _c: bench_wire_ab.main(ab), {}),
+                  "wire A/B audio")
+    ticks = 2 * 2 * (1 + TIMER_TICKS)
+    check_records(timer_run(rows, "bench_wire_ab --av",
+                            lambda _c: bench_wire_ab.main([*ab, "--av"]),
+                            {k2: 8 * ticks, k3: ticks,
+                             lstm_fused.infer_variant("none", 1, H, sms): 2 * 2}),
+                  "wire A/B AV")
+    torch.cuda.empty_cache()
+
+    # (7) the artifact overhead: the live step and the replay, K1a 2 a call
+    variant = lstm_fused.infer_variant("none", 8, H, sms)
+
+    def artifact(checked):
+        def check(fn, art, wave, video):
+            err = first_output_check(lambda: fn(wave, video), {variant: 2},
+                                     "timers artifact/live")
+            reset_counts()
+            replay = art.call("e", wave, video)
+            torch.cuda.synchronize()
+            expect_launches(launch_counts(), {variant: 2}, "timers artifact/replay")
+            if not torch.equal(replay, fn(wave, video)):
+                raise RuntimeError("timers artifact: replay differs from the live step")
+            print(f"timers artifact: live vs plain {err:.2e}, replay bit for bit")
+
+        return bench_artifact_overhead.main(["--iters", str(TIMER_ITERS)],
+                                            on_built=checked(check))
+
+    check_records(timer_run(rows, "bench_artifact_overhead", artifact), "artifact")
+    torch.cuda.empty_cache()
+    print(f"timers phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 # --- the command-line entry points -------------------------------------------
 
 CLI_TRAIN_B, CLI_EVAL_B, CLI_CAL_UTTS, CLI_CAL_B = 16, 8, 8, 4
@@ -4040,6 +4328,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh_phase(int8_model)
     del int8_model
+    torch.cuda.empty_cache()
+    timers_phase(rows)
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",
