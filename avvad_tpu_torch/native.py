@@ -1,11 +1,14 @@
 """Host-side C++ core for the streaming servers and WAV reading (port of
 avvad_tpu/native/__init__.py): ``build``, ``load``, ``available``,
 ``wav_info``, ``read_wav``, ``frame_energy_vad``, ``lzf_decompress`` (the
-HDF5 reader's LZF chunks) and ``StreamHub``.
+HDF5 reader's LZF chunks), ``zstd_decompress`` and ``crc32c`` (the Orbax
+checkpoint reader's zstd frames and OCDBT checksums) and ``StreamHub``.
 
 ``csrc/avvad_io.cpp`` is the port's own copy of the JAX package's
 ``native/avvad_io.cpp``, plus an LZF decoder (``lzf_decompress``) for the
-port's HDF5 reader. It is built at first use with ``g++`` and the
+port's HDF5 reader and a zstd decoder (RFC 8878, with the XXH64 content
+checksum) and CRC-32C for its Orbax checkpoints (``orbax_io.py``): no
+zstd package or system ``libzstd`` is used, here or on the card. It is built at first use with ``g++`` and the
 flags of ``native/Makefile`` into ``build/avvad_tpu_torch/libavvad_io.so``,
 rebuilt when the source is newer, and bound with ``ctypes``. Nothing is
 built at import time.
@@ -47,6 +50,10 @@ SIGNATURES = {
     "frame_energy_vad": (_I64, [_F, _I64, _I32, _I32, _I32, ctypes.c_double,
                                 _F, _I64]),
     "lzf_decompress": (_I64, [ctypes.c_char_p, _I64, ctypes.c_void_p, _I64]),
+    "zstd_decompress": (_I64, [ctypes.c_char_p, _I64, ctypes.c_void_p, _I64]),
+    "zstd_bound": (_I64, [ctypes.c_char_p, _I64]),
+    "zstd_error_name": (ctypes.c_char_p, [_I64]),
+    "crc32c": (ctypes.c_uint32, [ctypes.c_char_p, _I64, ctypes.c_uint32]),
     "hub_create": (_H, [_I32] * 4),
     "hub_create_i16": (_H, [_I32] * 4),
     "hub_destroy": (None, [_H]),
@@ -168,6 +175,37 @@ def lzf_decompress(data: bytes, out_len: int) -> bytes:
         raise ValueError(f"LZF chunk: decoded {n} bytes, expected {out_len} "
                          "(-1: corrupt input, -2: output longer than expected)")
     return out.raw
+
+
+class ZstdError(ValueError):
+    """A zstd input that is malformed, truncated, fails its checksum or
+    needs what the decoder does not cover (a dictionary)."""
+
+
+# the first four bytes of a zstd frame
+ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+
+def zstd_decompress(data: bytes) -> np.ndarray:
+    """Every zstd frame in ``data`` (RFC 8878; skippable frames skipped) ->
+    the decoded bytes as a uint8 array. Raises ``ZstdError`` on anything
+    malformed; the decoder reads nothing outside ``data``."""
+    lib = load()
+    data = bytes(data)
+    cap = lib.zstd_bound(data, len(data))
+    if cap < 0:
+        raise ZstdError(f"zstd: {lib.zstd_error_name(cap).decode()}")
+    out = np.empty(max(cap, 1), np.uint8)
+    n = lib.zstd_decompress(data, len(data), out.ctypes.data, cap)
+    if n < 0:
+        raise ZstdError(f"zstd: {lib.zstd_error_name(n).decode()}")
+    return out[:n]
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    data = bytes(data)
+    return int(load().crc32c(data, len(data), crc))
 
 
 class StreamHub:

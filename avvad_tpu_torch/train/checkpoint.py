@@ -5,8 +5,19 @@ Orbax).
 A checkpoint is a directory named ``epoch_{:03d}_vloss_{:.2f}`` (the
 reference's naming) holding one ``state.pt``; it is written into a
 ``.tmp`` sibling and renamed, so a crashed save leaves only a ``.tmp``
-directory, which ``prune_checkpoints`` sweeps. Model directories resolve
-to their best-vloss (ties: the later epoch) or latest checkpoint.
+directory, which ``prune_checkpoints`` sweeps (with the
+``.orbax-checkpoint-tmp`` leftovers of a crashed Orbax save). Model
+directories resolve to their best-vloss (ties: the later epoch) or latest
+checkpoint.
+
+Every reader here also takes the JAX package's Orbax checkpoints (a
+directory with ``_CHECKPOINT_METADATA`` or ``manifest.ocdbt``), read by
+``orbax_io`` without Orbax: the Flax variables become the model's state
+dict (``convert.from_flax_variables``), optax's Adam state the
+optimizer's (``convert.adam_from_optax``), so a model trained by the JAX
+package resumes, evaluates and serves here. ``export_jax_checkpoint``
+writes the other way: an Orbax checkpoint that the JAX package's
+``restore_checkpoint`` restores.
 
 Under a mesh (``mesh=``, one rank a mesh position) a checkpoint is the
 full, unsharded state: every rank gathers the column-sharded weights and
@@ -27,8 +38,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import convert, orbax_io
 from ..parallel.mesh import (full_optimizer_state, full_state_dict,
-                             load_full_optimizer_state, load_full_state_dict)
+                             load_full_optimizer_state, load_full_state_dict,
+                             unsharded_name)
 
 STATE_FILE = "state.pt"
 TRUNK_PREFIX = "tower.features."
@@ -49,18 +62,74 @@ def save_checkpoint(model_dir: str, state, norm_stats: Optional[dict] = None,
     """Save a full training checkpoint -> its directory's path. ``mesh``:
     collective; rank 0 writes the gathered state (module docstring)."""
     path = os.path.abspath(os.path.join(model_dir, checkpoint_name(epoch, valid_loss)))
-    if mesh is None:
-        model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
-    else:
-        model_sd = full_state_dict(state.model)
-        opt_sd = full_optimizer_state(state.optimizer, mesh.group("model"))
-        if mesh.rank != 0:
-            _barrier(mesh)
-            return path
+    full = _full_state(state, mesh)
+    if full is None:
+        return path
+    model_sd, opt_sd = full
     payload = {"model": model_sd, "optimizer": opt_sd, "step": state.step,
                "norm_stats": {k: torch.as_tensor(np.asarray(v))
                               for k, v in (norm_stats or {}).items() if v is not None}}
     _write(path, payload)
+    _barrier(mesh)
+    return path
+
+
+def _full_state(state, mesh):
+    """-> (model state dict, optimizer state dict), unsharded; under a mesh
+    gathered (collective), and None on every rank but 0, which has waited
+    at the barrier that closes the save."""
+    if mesh is None:
+        return state.model.state_dict(), state.optimizer.state_dict()
+    model_sd = full_state_dict(state.model)
+    opt_sd = full_optimizer_state(state.optimizer, mesh.group("model"))
+    if mesh.rank != 0:
+        _barrier(mesh)
+        return None
+    return model_sd, opt_sd
+
+
+def _param_groups(state, model_sd: dict) -> list:
+    """The optimizer's parameters, group by group, as (state_dict key of
+    the unsharded model, full shape)."""
+    names = {id(p): unsharded_name(n) for n, p in state.model.named_parameters()}
+    return [[(names[id(p)], tuple(model_sd[names[id(p)]].shape)) for p in g["params"]]
+            for g in state.optimizer.param_groups]
+
+
+def _tensors(tree):
+    """numpy leaves -> torch tensors (which Orbax restores as jax.Array)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tensors(v) for v in tree]
+    return torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
+
+
+def export_jax_checkpoint(model_dir: str, state, norm_stats: Optional[dict] = None,
+                          epoch: int = 0, valid_loss: float = 0.0, mesh=None) -> str:
+    """Write ``state`` as the JAX package's ``save_checkpoint`` would: an
+    Orbax checkpoint ``epoch_NNN_vloss_X.XX`` in ``model_dir`` holding
+    ``params``, ``opt_state`` (optax's Adam, inside ``multi_transform``
+    when the video trunk is frozen), ``step`` and, where the model has
+    them, ``batch_stats``, ``sketch`` and ``quant``, and ``norm_stats`` ->
+    its path. ``mesh``: collective, rank 0 writes (as ``save_checkpoint``)."""
+    path = os.path.abspath(os.path.join(model_dir, checkpoint_name(epoch, valid_loss)))
+    full = _full_state(state, mesh)
+    if full is None:
+        return path
+    model_sd, opt_sd = full
+    params = {unsharded_name(n) for n, _ in state.model.named_parameters()}
+    variables = convert.to_flax_variables(model_sd, params)
+    every = [(k, tuple(v.shape)) for k, v in model_sd.items() if k in params]
+    payload = _tensors({
+        **variables,
+        "opt_state": convert.adam_to_optax(opt_sd, _param_groups(state, model_sd),
+                                           every, model_sd),
+        "step": np.asarray(state.step, np.int32)})
+    if norm_stats:
+        payload["norm_stats"] = {k: np.asarray(v) for k, v in norm_stats.items()
+                                 if v is not None}
+    orbax_io.write_checkpoint(path, payload)
     _barrier(mesh)
     return path
 
@@ -109,13 +178,14 @@ def resolve_checkpoint(path: str, prefer: str = "best") -> str:
 
 def prune_checkpoints(model_dir: str, keep_latest: int = 1) -> int:
     """Delete every checkpoint but the best-vloss one and the
-    ``keep_latest`` newest epochs, and every ``.tmp`` leftover -> the
-    number removed."""
+    ``keep_latest`` newest epochs, and every leftover of a crashed save
+    (``.tmp``, and Orbax's ``.orbax-checkpoint-tmp``) -> the number
+    removed."""
     if not os.path.isdir(model_dir):
         return 0
     removed = 0
     for name in os.listdir(model_dir):
-        if name.endswith(".tmp"):
+        if name.endswith((".tmp", ".orbax-checkpoint-tmp")):
             shutil.rmtree(os.path.join(model_dir, name))
             removed += 1
     entries = _entries(model_dir)
@@ -135,8 +205,20 @@ def prune_checkpoints(model_dir: str, keep_latest: int = 1) -> int:
 QUANT_BUFFERS = ("q_stem", "q1", "q_out")
 
 
-def _load(path: str, device) -> dict:
+def _load(path: str, device) -> tuple:
+    """A checkpoint (``state.pt``, or a JAX Orbax directory), or a model
+    directory's best-vloss one -> (payload, its path). The payload: the
+    model's state dict, the optimizer's (a ``state.pt``) or optax's
+    ``opt_state`` tree (an Orbax checkpoint), the step and the norm
+    statistics."""
     path = resolve_checkpoint(path)
+    if orbax_io.is_orbax_checkpoint(path):
+        tree = orbax_io.read_checkpoint(path)
+        model = {k: v.to(device) for k, v in convert.from_flax_variables(tree).items()}
+        return {"model": model, "opt_state": tree.get("opt_state"),
+                "step": int(np.asarray(tree.get("step", 0))),
+                "norm_stats": {k: torch.as_tensor(np.asarray(v))
+                               for k, v in (tree.get("norm_stats") or {}).items()}}, path
     file = os.path.join(path, STATE_FILE)
     if not os.path.isfile(file):
         raise FileNotFoundError(f"no checkpoint at {path!r} (expected an "
@@ -146,15 +228,21 @@ def _load(path: str, device) -> dict:
 
 def restore_checkpoint(path: str, state, with_opt: bool = True, mesh=None):
     """Restore model (parameters and buffers), optimizer state and step into
-    ``state`` in place. ``path``: a checkpoint, or a model directory (its
-    best-vloss checkpoint) -> (state, norm_stats (numpy) or None, epoch).
+    ``state`` in place. ``path``: a checkpoint (the port's or the JAX
+    package's), or a model directory (its best-vloss checkpoint) ->
+    (state, norm_stats (numpy) or None, epoch).
     A model with sharded weights keeps its columns of each (``mesh``: the
     ranks first wait for each other, so that rank 0's write is done)."""
     _barrier(mesh)
     payload, path = _load(path, state.device)
     load_full_state_dict(state.model, payload["model"])
     if with_opt:
-        load_full_optimizer_state(state.optimizer, payload["optimizer"])
+        opt_sd = payload.get("optimizer")
+        if opt_sd is None:  # an Orbax checkpoint: optax's Adam state
+            opt_sd = convert.adam_from_optax(
+                payload["opt_state"], _param_groups(state, payload["model"]),
+                payload["model"], state.optimizer.state_dict())
+        load_full_optimizer_state(state.optimizer, opt_sd)
     state.step = int(payload["step"])
     norm_stats = {k: v.cpu().numpy() for k, v in payload["norm_stats"].items()} or None
     m = _CKPT_RE.match(os.path.basename(os.path.normpath(path)))

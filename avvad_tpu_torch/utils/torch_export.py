@@ -61,11 +61,9 @@ def export_video_trunk_pt(checkpoint: str, out_path: str) -> int:
     the trunk of a port ``VideoVAD`` / ``AVVAD`` checkpoint (a checkpoint
     directory, or a model directory: its best-vloss checkpoint) -> the
     number of tensors written."""
-    from ..train.checkpoint import STATE_FILE, resolve_checkpoint
+    from ..train.checkpoint import _load
 
-    path = os.path.abspath(resolve_checkpoint(checkpoint))
-    payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                         weights_only=True)
+    payload, path = _load(os.path.abspath(checkpoint), "cpu")
     trunk = {k[len(TRUNK_KEY):]: v for k, v in payload["model"].items()
              if k.startswith(TRUNK_KEY)}
     if not trunk:

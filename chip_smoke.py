@@ -246,9 +246,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
     where the count is exact, one check call otherwise); each timed
     serving program's first output within 1e-4 of its plain route, the
     tripwire's fused trunk bit for bit; the phase's wall seconds;
+17c. the JAX package's Orbax checkpoints, read and written by the port
+    (avvad_tpu_torch/orbax_io.py; zstd, XXH64 and CRC-32C from the host
+    library, no Orbax, TensorStore or zstd package): (a) the committed
+    real-Orbax fixture (tests/fixtures/make_orbax_fixtures.py: an AudioVAD
+    train state at H=32 that JAX saved) read, every array's SHA-256 as
+    Orbax restored it, restored into the port's model, its waveform serving
+    step on the persistent K1a (2 launches) against JAX's recorded
+    probabilities (1e-4), and the decoder's MB/s over the fixture's zstd
+    chunks on this host; (b) the full-width AVVAD (MCB 1024, 2 x LSTM
+    1024, ResNet-18 trained) at B=16, T=512: 2 train steps (K1d 2, K1e 2
+    a step), export_jax_checkpoint (write s, MB), restore_checkpoint into
+    a fresh state (read s): every model tensor and Adam moment bit-equal,
+    one more step from the restored and from the live state bit-equal
+    (cuDNN deterministic); restore_model of the same checkpoint into the
+    static-int8-tower model, calibrated, its B=64, T=512 serving step with
+    int8 state (K3 1, K2 8, K1b 2) within 1e-4 of its plain route; a
+    VideoVAD checkpoint written the same way and load_pretrained_trunk
+    from it into a frozen-trunk AVVAD, the trunk bit-equal. One
+    {"orbax": ...} line each;
 18. one {"kernels": [...]} line (21 rows), then the card's name and power
     limit and the ok line with the device.
-Weights are random, from the port's own seeded init; nothing of JAX runs.
+Weights are random, from the port's own seeded init (the Orbax fixture's
+were JAX's, written where the fixture was made); nothing of JAX runs.
 """
 
 from __future__ import annotations
@@ -4260,6 +4280,232 @@ def rehearsal_phase(tmp: str) -> None:
                       "upsampling_qa": qa, "figures": figures}))
 
 
+# the Orbax phase: the committed fixture of tests/fixtures/make_orbax_fixtures.py
+ORBAX_FIXTURES = HDF5_FIXTURES / "orbax_fixtures.json"
+# its serving step against JAX's recorded probabilities: the JAX side ran
+# the Pallas LSTM (the kernels' arithmetic) on the CPU, the card the
+# persistent K1a (tests/test_torch_port_models.py::test_serving_fn_matches_jax's
+# bar)
+ORBAX_PROB_TOL = 1e-4
+# passes of the decoder over the fixture's chunks, for its MB/s
+ORBAX_DECODE_PASSES = 20
+
+
+def orbax_fixture_phase(rows: dict) -> None:
+    """Phase 17c (a): the committed real-Orbax checkpoint through the port
+    on the card (module docstring)."""
+    import hashlib
+
+    from avvad_tpu_torch import native, orbax_io
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AudioVAD
+    from avvad_tpu_torch.train import restore_model
+
+    sys.path.insert(0, str(HDF5_FIXTURES))
+    from make_orbax_fixtures import waveforms
+
+    meta = json.loads(ORBAX_FIXTURES.read_text())
+    path = str(HDF5_FIXTURES / meta["model_dir"] / meta["checkpoint"])
+    t0 = time.perf_counter()
+    tree = orbax_io.read_checkpoint(path)
+    read_s = time.perf_counter() - t0
+    for key, digest in meta["arrays_sha256"].items():
+        leaf = tree
+        for k in key.split("/"):
+            leaf = leaf[int(k)] if isinstance(leaf, list) else leaf[k]
+        if hashlib.sha256(np.ascontiguousarray(leaf).tobytes()).hexdigest() != digest:
+            raise RuntimeError(f"orbax fixture: {key} differs from Orbax's restore")
+    wave = waveforms(meta["seed"])
+    if hashlib.sha256(wave.tobytes()).hexdigest() != meta["wave_sha256"]:
+        raise RuntimeError("orbax fixture: the seeded waveforms differ from the fixture's")
+    model = AudioVAD(lstm_hidden_size=meta["lstm_hidden"], lstm_layers=meta["lstm_layers"],
+                     use_kernel_lstm=True)
+    norm, epoch = restore_model(path, model)
+    fn = make_waveform_serving_fn(model, t_frames=meta["t_frames"], norm_stats=norm)
+    reset_counts()
+    probs = fn(torch.from_numpy(wave).cuda())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect_launches(counts, {"none_persist": 2}, "orbax fixture serving")
+    add_launches(rows, counts)
+    probs = probs.float().cpu().numpy().reshape(meta["batch"], -1)
+    err = float(np.abs(probs - np.asarray(meta["probs"])).max())
+    if not err <= ORBAX_PROB_TOL:
+        raise RuntimeError(f"orbax fixture: probabilities {err} off JAX's")
+    store = orbax_io.read_store(path)
+    frames = [v for k, v in store.items()
+              if not k.endswith(b".zarray") and v[:4] == native.ZSTD_MAGIC]
+    t0 = time.perf_counter()
+    decoded = sum(native.zstd_decompress(f).size
+                  for _ in range(ORBAX_DECODE_PASSES) for f in frames)
+    decode_s = time.perf_counter() - t0
+    print(json.dumps({"orbax": "fixture", "arrays": len(meta["arrays_sha256"]),
+                      "epoch": epoch, "read_s": read_s, "launches": counts["none_persist"],
+                      "max_abs_err_vs_jax": err, "tol": ORBAX_PROB_TOL,
+                      "zstd_frames": len(frames),
+                      "zstd_mb_decoded": decoded / 1e6 / ORBAX_DECODE_PASSES,
+                      "decoder_mb_s": decoded / decode_s / 1e6}))
+
+
+def _moments_equal(a, b) -> int:
+    """Adam's state of two states' parameters, pairwise, bit for bit -> the
+    number of parameters compared."""
+    n = 0
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state.get(p), b.optimizer.state.get(q)
+        if (sa is None) != (sb is None):
+            raise RuntimeError("orbax round trip: Adam state on one side only")
+        if sa is None:
+            continue
+        if float(sa["step"]) != float(sb["step"]) or not (
+                torch.equal(sa["exp_avg"], sb["exp_avg"])
+                and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])):
+            raise RuntimeError("orbax round trip: Adam moments differ")
+        n += 1
+    return n
+
+
+def _state_equal(want: dict, got: dict, label: str) -> int:
+    """Two state dicts bit for bit (BatchNorm's num_batches_tracked aside:
+    Flax keeps none, and the momentum rule does not read it) -> tensors
+    compared."""
+    keys = [k for k in want if not k.endswith("num_batches_tracked")]
+    if set(keys) != {k for k in got if not k.endswith("num_batches_tracked")}:
+        raise RuntimeError(f"{label}: state dict keys differ")
+    bad = [k for k in keys if not torch.equal(want[k], got[k])]
+    if bad:
+        raise RuntimeError(f"{label}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    return len(keys)
+
+
+def orbax_round_trip_phase(rows: dict) -> None:
+    """Phase 17c (b): the full-width round trip through the JAX package's
+    checkpoint format on the card (module docstring)."""
+    from avvad_tpu_torch.models import AVVAD, VideoVAD
+    from avvad_tpu_torch.train import (create_train_state, load_pretrained_trunk,
+                                       make_train_step, restore_checkpoint)
+    from avvad_tpu_torch.train.checkpoint import export_jax_checkpoint
+
+    def av(seed: int, **kw):
+        return AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                     use_kernel_lstm=True, seed=seed, **kw)
+
+    out = {"orbax": "round_trip"}
+    step = make_train_step("av")
+    batches = [train_batch(T, TRAIN_B, "av", seed=s) for s in (20, 21, 22)]
+    rng = np.random.default_rng(3)
+    norm = {"audio_mean": rng.standard_normal((513, 1)).astype(np.float32),
+            "audio_std": (rng.random((513, 1)) + 0.5).astype(np.float32)}
+    state = create_train_state(av(0), learning_rate=1e-4)
+    BUILD.mkdir(exist_ok=True)
+    # the trunk trains: its weight gradients in one order on both sides
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_counts()
+        for batch in batches[:2]:
+            step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect_launches(counts, {"fwd_train_persist": 4, "bwd_persist": 4},
+                        "orbax round trip: 2 train steps")
+        add_launches(rows, counts)
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            t0 = time.perf_counter()
+            path = export_jax_checkpoint(tmp, state, norm, epoch=2, valid_loss=0.5)
+            out["write_s"] = time.perf_counter() - t0
+            out["checkpoint_mb"] = sum(f.stat().st_size for f in Path(path).rglob("*")
+                                       if f.is_file()) / 1e6
+            fresh = create_train_state(av(1), learning_rate=1e-4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh, norm_back, epoch = restore_checkpoint(tmp, fresh)
+            torch.cuda.synchronize()
+            out["read_s"] = time.perf_counter() - t0
+            out["read_mb_s"] = out["checkpoint_mb"] / out["read_s"]
+            if epoch != 2 or fresh.step != state.step or set(norm_back) != set(norm) \
+                    or any(not np.array_equal(norm_back[k], norm[k]) for k in norm):
+                raise RuntimeError(f"orbax round trip: epoch {epoch}, step {fresh.step}")
+            out["tensors_equal"] = _state_equal(state.model.state_dict(),
+                                                fresh.model.state_dict(), "restored state")
+            out["moments_equal"] = _moments_equal(state, fresh)
+            reset_counts()
+            _, m_live = step(state, batches[2])
+            _, m_back = step(fresh, batches[2])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expect_launches(counts, {"fwd_train_persist": 4, "bwd_persist": 4},
+                            "orbax round trip: the next step, twice")
+            add_launches(rows, counts)
+            out["next_step_tensors_equal"] = _state_equal(
+                state.model.state_dict(), fresh.model.state_dict(), "the next step")
+            _moments_equal(state, fresh)
+            if m_live["loss"].item() != m_back["loss"].item():
+                raise RuntimeError("orbax round trip: the next step's losses differ")
+            out["next_step_loss"] = m_live["loss"].item()
+            del fresh
+            torch.backends.cudnn.deterministic = False
+            int8_round_trip(path, norm_back, rows, out)
+            # a VideoVAD checkpoint, its trunk grafted into a frozen-trunk AVVAD
+            video = create_train_state(VideoVAD(lstm_hidden_size=H, lstm_layers=2,
+                                                use_kernel_lstm=True, seed=3))
+            vdir = str(Path(tmp) / "video")
+            export_jax_checkpoint(vdir, video, epoch=0)
+            frozen = create_train_state(av(4), freeze_video_trunk=True)
+            load_pretrained_trunk(vdir, frozen.model)
+            trunk = {k: v for k, v in video.model.state_dict().items()
+                     if k.startswith("tower.features.")}
+            out["trunk_tensors_equal"] = _state_equal(
+                trunk, {k: v for k, v in frozen.model.state_dict().items() if k in trunk},
+                "grafted trunk")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(json.dumps(out))
+
+
+def int8_round_trip(path: str, norm: dict, rows: dict, out: dict) -> None:
+    """restore_model of the float checkpoint into the static-int8-tower AVVAD,
+    calibrated; its serving step with int8 state against the plain route."""
+    from avvad_tpu_torch.export import make_waveform_serving_fn
+    from avvad_tpu_torch.models import AVVAD, calibrate
+    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.train import restore_model
+
+    model = AVVAD(lstm_hidden_size=H, lstm_layers=2, use_mcb=True, mcb_output_size=1024,
+                  dtype=torch.bfloat16, use_kernel_lstm=True, tower_int8=True,
+                  tower_quant_mode="static", tower_pallas=True, seed=5).cuda()
+    restore_model(path, model)
+    wave, video, idx = serving_inputs()
+    calibrate(model, [(torch.zeros(2, T, 513, device="cuda"), video[:2])],
+              video_frame_indices=torch.as_tensor(idx, device="cuda"))
+    model.set_lstm_state_quant("int8")
+    fn = make_waveform_serving_fn(model, t_frames=T, video_frame_indices=idx, norm_stats=norm)
+    reset_counts()
+    probs = fn(wave, video)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect_launches(counts, {"int8_persist": 2, conv_fused.KERNEL_NAME: 8,
+                             stem_fused.NHWC_KERNEL_NAME: 1}, "orbax int8-tower serving")
+    add_launches(rows, counts)
+    check_probs(probs, "orbax int8-tower serving")
+    with plain_k2_k3(), plain_inference(lstm_fused):
+        ref = fn(wave, video)
+    err = (probs - ref).abs().max().item()
+    if not err <= INT8_PROB_TOL:
+        raise RuntimeError(f"orbax int8-tower serving: {err} off its plain route")
+    out["int8_serving_launches"] = {k: v for k, v in counts.items() if v}
+    out["int8_serving_max_abs_err_vs_plain"] = err
+
+
+def orbax_phase(rows: dict) -> None:
+    """Phase 17c: (a) and (b), timed."""
+    t0 = time.perf_counter()
+    orbax_fixture_phase(rows)
+    torch.cuda.empty_cache()
+    orbax_round_trip_phase(rows)
+    torch.cuda.empty_cache()
+    print(f"orbax phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4330,6 +4576,8 @@ def main() -> None:
     del int8_model
     torch.cuda.empty_cache()
     timers_phase(rows)
+    torch.cuda.empty_cache()
+    orbax_phase(rows)
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
         *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",

@@ -2,6 +2,7 @@
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -203,7 +204,11 @@ def test_probe_wrapper_rejects_bad_arguments(bad):
 
 # --- the card's installations: no h5py, yaml or matplotlib there ---
 
-ABSENT_ON_CARD = ("h5py", "yaml", "matplotlib", "cv2", "librosa", "soundfile")
+ABSENT_ON_CARD = ("h5py", "yaml", "matplotlib", "cv2", "librosa", "soundfile",
+                  "orbax", "tensorstore", "zstandard")
+# imported by no port module, not even inside a function: HDF5 and Orbax
+# checkpoints go through the port's own hdf5.py and orbax_io.py
+NEVER_IMPORTED = ("h5py", "orbax", "tensorstore", "zstandard")
 
 
 def _module_level_imports(path):
@@ -224,30 +229,31 @@ def _module_level_imports(path):
 
 def test_port_imports_no_optional_package_at_module_level():
     """yaml only inside the functions that read or write YAML; matplotlib,
-    cv2, librosa and soundfile nowhere at module level; h5py nowhere at
-    all: HDF5 goes through the port's own hdf5.py."""
+    cv2, librosa and soundfile nowhere at module level; h5py, orbax,
+    tensorstore and zstandard nowhere at all: HDF5 and Orbax checkpoints go
+    through the port's own hdf5.py and orbax_io.py."""
     bad = []
     for path in _port_files():
         for mod in _module_level_imports(path):
             if mod.split(".")[0] in ABSENT_ON_CARD:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
-    # no port module imports h5py, not even inside a function
+    # no port module imports these, not even inside a function
     assert not [p.relative_to(ROOT) for p in _port_files()
-                if "h5py" in {m.split(".")[0] for m in _imported_modules(p)}]
+                if set(NEVER_IMPORTED) & {m.split(".")[0] for m in _imported_modules(p)}]
 
 
 def test_every_port_module_imports_without_h5py_and_yaml():
-    """In a fresh interpreter with ``h5py`` and ``yaml`` unimportable, every
-    module of the package (the command-line twins too) and chip_smoke.py
-    imports."""
+    """In a fresh interpreter with ``h5py``, ``yaml``, ``orbax``,
+    ``tensorstore`` and ``zstandard`` unimportable, every module of the
+    package (the command-line twins too) and chip_smoke.py imports."""
     import subprocess
     import sys
 
     code = (
         "import importlib, pkgutil, sys\n"
-        "sys.modules['h5py'] = None\n"
-        "sys.modules['yaml'] = None\n"
+        "for m in ('h5py', 'yaml', 'orbax', 'tensorstore', 'zstandard'):\n"
+        "    sys.modules[m] = None\n"
         "import avvad_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(avvad_tpu_torch.__path__,"
         " 'avvad_tpu_torch.')]\n"
@@ -260,6 +266,30 @@ def test_every_port_module_imports_without_h5py_and_yaml():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 62
+
+
+def test_orbax_checkpoint_reads_without_orbax_tensorstore_zstd_or_jax():
+    """In a fresh interpreter with ``orbax``, ``tensorstore``, ``zstandard``
+    and ``jax`` unimportable, the committed Orbax fixture reads and restores
+    into the port's model; and no port source loads a system zstd library."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "for m in ('orbax', 'tensorstore', 'zstandard', 'jax', 'flax'):\n"
+        "    sys.modules[m] = None\n"
+        "from avvad_tpu_torch.models import AudioVAD\n"
+        "from avvad_tpu_torch.train import restore_model\n"
+        "model = AudioVAD(lstm_hidden_size=32, lstm_layers=2)\n"
+        "norm, epoch = restore_model('tests/fixtures/orbax_audio_h32', model)\n"
+        "assert epoch == 1 and set(norm) == {'audio_mean', 'audio_std'}\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stderr
+    loads = re.compile(r"find_library|libzstd\.so|CDLL\([^)]*zstd")
+    assert not [p.relative_to(ROOT) for p in _port_files() if loads.search(p.read_text())]
 
 
 def test_import_guard_covers_the_corpus_modules():

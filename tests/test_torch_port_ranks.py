@@ -271,6 +271,32 @@ def multi_process(out_dir: str) -> dict:
             "eval": {k: classified[k] for k in ("n_utterances", "n_frames")}}
 
 
+def orbax_model_parallel(path: str, out_dir: str) -> dict:
+    """A JAX Orbax checkpoint of AudioVAD(H=512) restored on a 1 x 2 mesh
+    (w_ih / w_hh and their Adam moments column-sharded): each rank keeps
+    its columns; rank 0 writes the gathered state to ``out_dir/full.pt``.
+    Then ``export_jax_checkpoint(mesh=)`` of that state into
+    ``out_dir/export`` (rank 0 writes)."""
+    from avvad_tpu_torch.parallel.mesh import full_optimizer_state
+    from avvad_tpu_torch.train import create_train_state, restore_checkpoint
+    from avvad_tpu_torch.train.checkpoint import export_jax_checkpoint
+
+    rank = _join()
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    model = _tp_audio_model(None, use_kernel=False)
+    state = create_train_state(model, learning_rate=1e-4, device="cpu")
+    shard_params(mesh, model)
+    shard_opt_state(mesh, state.optimizer)
+    state, _, epoch = restore_checkpoint(path, state, mesh=mesh)
+    shards = {n: list(p.shape) for n, p in model.named_parameters() if "original" in n}
+    full = full_state_dict(model)
+    opt = full_optimizer_state(state.optimizer, mesh.group("model"))
+    if rank == 0:
+        torch.save({"model": full, "optimizer": opt}, os.path.join(out_dir, "full.pt"))
+    export_jax_checkpoint(os.path.join(out_dir, "export"), state, epoch=epoch, mesh=mesh)
+    return {"rank": rank, "epoch": epoch, "step": state.step, "shards": shards}
+
+
 class _AudioOnly:
     """``TinySource`` without its video, for an AudioVAD."""
 
