@@ -1,0 +1,7 @@
+"""Device ms of the LSTM stack (forward hooks on it): the input projections
+and both layers' recurrences; the mean over the traced window's steps."""
+from benchmark.harness.readers import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, "lstm_start", "lstm_end")
