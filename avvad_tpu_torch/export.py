@@ -44,6 +44,7 @@ from . import ops  # noqa: F401  (registers the custom ops before a program load
 from ._device import resolve_device
 from .models.vad_nets import AVVAD, AudioVAD, RawAudioVAD, VideoVAD
 from .ops.stft import log_power_frontend
+from .utils import profiling
 
 _META_NAME = "meta.json"
 _ENTRY_SUFFIX = ".pt2"
@@ -54,8 +55,9 @@ OP_NAMESPACE = "avvad_tpu_torch"
 class ServingStep(nn.Module):
     """A serving step as a module: ``model`` (its weights this module's
     state, or None) and ``body``, a function of tensors only. Calling it
-    runs the body under ``torch.inference_mode()``; ``forward`` is the
-    untraced body, which ``ServingArtifact.build`` exports."""
+    runs the body under ``torch.inference_mode()`` as the ``serve.step``
+    span; ``forward`` is the untraced body, which ``ServingArtifact.build``
+    exports."""
 
     def __init__(self, model: Optional[nn.Module], body: Callable):
         super().__init__()
@@ -66,7 +68,7 @@ class ServingStep(nn.Module):
         return self._body(*args)
 
     def __call__(self, *args):
-        with torch.inference_mode():
+        with profiling.span("serve.step"), torch.inference_mode():
             return super().__call__(*args)
 
 
@@ -426,6 +428,7 @@ def _stat(norm_stats: Optional[dict], device, *keys):
     return None
 
 
+@profiling.setup_span("setup.serving_fn")
 def make_waveform_serving_fn(model: AVVAD | AudioVAD | RawAudioVAD | VideoVAD, *,
                              t_frames: Optional[int] = None,
                              fs: int = 16000,
@@ -451,7 +454,10 @@ def make_waveform_serving_fn(model: AVVAD | AudioVAD | RawAudioVAD | VideoVAD, *
 
     TF32 stays off for matmuls and cuDNN convolutions: the JAX package pins
     fp32 (Precision.HIGHEST) in the STFT DFT and the MCB matmuls, and its
-    float convs run in the model dtype, never in TF32."""
+    float convs run in the model dtype, never in TF32.
+
+    The call is the ``setup.serving_fn`` set-up span; the frontend of each
+    step the ``serve.frontend`` span."""
     if not isinstance(model, (AVVAD, AudioVAD, RawAudioVAD, VideoVAD)):
         raise TypeError(f"unsupported model for serving: {type(model)!r}")
     if isinstance(model, AVVAD) and t_frames is None:
@@ -486,13 +492,14 @@ def make_waveform_serving_fn(model: AVVAD | AudioVAD | RawAudioVAD | VideoVAD, *
         return ServingStep(model, video_fn)
 
     def frontend(wave):
-        wave = torch.as_tensor(wave, device=dev)
-        feats = log_power_frontend(wave, fs=fs, wlen_sec=wlen_sec,
-                                   hop_percent=hop_percent, center=False,
-                                   pad_at_end=True, hop_dft=hop_dft)[:, :t_frames, :]
-        if a_mean is not None:
-            feats = (feats - a_mean) / (a_std + eps)
-        return feats
+        with profiling.span("serve.frontend"):
+            wave = torch.as_tensor(wave, device=dev)
+            feats = log_power_frontend(wave, fs=fs, wlen_sec=wlen_sec,
+                                       hop_percent=hop_percent, center=False,
+                                       pad_at_end=True, hop_dft=hop_dft)[:, :t_frames, :]
+            if a_mean is not None:
+                feats = (feats - a_mean) / (a_std + eps)
+            return feats
 
     if isinstance(model, AudioVAD):
         def audio_fn(wave):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.lstm_fused import lstm_layer_fused
+from ..utils.profiling import span
 
 
 def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -99,7 +100,11 @@ class LSTMStack(nn.Module):
     def forward(self, x: torch.Tensor, carries: Optional[list] = None,
                 return_carries: bool = False):
         """carries: per-layer (h, c) from a previous chunk; with
-        return_carries=True returns (outputs, new_carries)."""
+        return_carries=True returns (outputs, new_carries). The ``lstm`` span."""
+        with span("lstm"):
+            return self._forward(x, carries, return_carries)
+
+    def _forward(self, x, carries, return_carries):
         new_carries = []
         for layer, cell in enumerate(self.layers()):
             h0 = carries[layer] if carries is not None else None

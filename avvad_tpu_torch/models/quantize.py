@@ -22,13 +22,16 @@ from typing import Iterable
 import torch
 from torch import nn
 
+from ..utils.profiling import setup_span
 from .resnet import ResNet18
 
 
+@setup_span("setup.calibrate")
 def calibrate(model: nn.Module, batches: Iterable, **kw) -> nn.Module:
     """Run ``model(*batch, **kw)`` for each batch (a tuple of positional
     arguments, or one tensor) in eval mode with the int8 towers in
-    "calibrate" mode -> the model, its scale buffers updated in place."""
+    "calibrate" mode -> the model, its scale buffers updated in place. The
+    call is the ``setup.calibrate`` set-up span."""
     towers = [m for m in model.modules() if isinstance(m, ResNet18) and m.quant_int8]
     if not towers:
         raise ValueError("calibrate needs a model with an int8 tower "

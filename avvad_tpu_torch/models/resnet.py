@@ -56,6 +56,7 @@ from torch import nn
 from ..parallel.sync import all_reduce_sum, data_group
 from ..ops.conv_fused import conv_exact, fold_block, quant_hwio, trunk_features_int8
 from ..ops.stem_fused import fold_stem, stem_epilogue_pool_quant
+from ..utils.profiling import span
 
 QUANT_MODES = ("dynamic", "calibrate", "static")
 
@@ -142,6 +143,12 @@ def _global_batch_stats(x: torch.Tensor, axes: list, shape: list,
     mean = sums[:-1] / sums[-1]
     sq = all_reduce_sum(torch.square(x - mean.view(shape)).sum(axes), group)
     return mean, sq / sums[-1]
+
+
+def _trunk_bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``batch_norm`` in the float trunk, as a ``bn`` span."""
+    with span("bn"):
+        return batch_norm(bn, x)
 
 
 def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -255,11 +262,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.relu(batch_norm(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt)))
-        y = batch_norm(self.bn2, _conv(y, self.conv2.weight, 1, 1, dt))
+        y = F.relu(_trunk_bn(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt)))
+        y = _trunk_bn(self.bn2, _conv(y, self.conv2.weight, 1, 1, dt))
         residual = x
         if self.has_downsample:
-            residual = batch_norm(self.downsample_bn, _conv(
+            residual = _trunk_bn(self.downsample_bn, _conv(
                 x, self.downsample_conv.weight, self.stride, 0, dt))
         return F.relu(y + residual)
 
@@ -420,7 +427,9 @@ class ResNet18(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.quant_int8:
-            x = F.relu(batch_norm(self.bn1, self.conv1(x)))
+            with span("tower.stem"):
+                x = self.conv1(x)
+            x = F.relu(_trunk_bn(self.bn1, x))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for block in self.blocks():
                 x = block(x)
@@ -439,11 +448,13 @@ class ResNet18(nn.Module):
         """The int8 tower's stem conv: float, or with ``stem_int8`` the W8A8
         stem on the raw fp32 input quantised by ``q_in`` (resnet.py:366-378:
         not the model-dtype cast, whose rounding would stack under the
-        quantisation; symmetric quantisation keeps the zero padding exact)."""
-        if not self.stem_int8:
-            return self.conv1(x, channels_last=channels_last)
-        x_q, x_s = act_quant(x.float(), self.q_in, self.quant_mode)
-        return self.conv1.forward_int8(x_q, x_s, channels_last=channels_last)
+        quantisation; symmetric quantisation keeps the zero padding exact).
+        The ``tower.stem`` span."""
+        with span("tower.stem"):
+            if not self.stem_int8:
+                return self.conv1(x, channels_last=channels_last)
+            x_q, x_s = act_quant(x.float(), self.q_in, self.quant_mode)
+            return self.conv1.forward_int8(x_q, x_s, channels_last=channels_last)
 
     def _fused_int8(self, stem: torch.Tensor) -> torch.Tensor:
         """Stem conv output (channels-last) -> stem epilogue kernel (K3) -> 8

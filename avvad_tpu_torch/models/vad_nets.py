@@ -34,6 +34,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .lstm import LSTMStack, select_last
 from .mcb import CompactBilinearPooling, global_l2_normalize, signed_sqrt
 from .resnet import ResNet18, batch_norm, lecun_normal_, running_stats_frozen
@@ -68,6 +69,10 @@ class _VideoTower(nn.Module):
                                  stem_int8=stem_int8)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
+        with span("tower"):
+            return self._forward(video)
+
+    def _forward(self, video: torch.Tensor) -> torch.Tensor:
         b, t, h, w = video.shape
         frames = video.reshape(b * t, 1, h, w)
         if not self.gray_stem:
@@ -187,8 +192,9 @@ class AudioVAD(nn.Module):
 
     def forward(self, audio: torch.Tensor,
                 dropout_rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        x = self.dropout(self.lstm_audio(audio.float()).float(), dropout_rng)
-        return self.vad_audio(x)
+        x = self.lstm_audio(audio.float())
+        with span("head"):
+            return self.vad_audio(self.dropout(x.float(), dropout_rng))
 
     def streaming_head(self, feats: torch.Tensor, carries: list):
         """One streaming block: features (N, Tc, 513) and per-layer (h, c)
@@ -229,8 +235,11 @@ class RawAudioVAD(nn.Module):
         self.vad_audio = _head(lstm_hidden_size, y_dim, g)
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
-        x = self.wavenet_en(waveform[..., None])  # (B, out_frames, bottleneck)
-        return self.vad_audio(self.lstm_audio(x).float())
+        with span("encoder"):
+            x = self.wavenet_en(waveform[..., None])  # (B, out_frames, bottleneck)
+        x = self.lstm_audio(x)
+        with span("head"):
+            return self.vad_audio(x.float())
 
 
 class VideoVAD(nn.Module):
@@ -273,7 +282,8 @@ class VideoVAD(nn.Module):
             if lengths is None:
                 raise ValueError("return_last requires lengths")
             x = select_last(x, lengths.to(x.device))
-        return self.vad_video(self.dropout(x.float(), dropout_rng))
+        with span("head"):
+            return self.vad_video(self.dropout(x.float(), dropout_rng))
 
     def streaming_head(self, video: torch.Tensor, carries: list,
                        video_frame_indices: Optional[torch.Tensor] = None):
@@ -358,10 +368,13 @@ class AVVAD(nn.Module):
         video holds unique camera-rate frames and the tower features are
         gathered onto the audio timeline."""
         v = self.tower(video)
-        if video_frame_indices is not None:
-            v = v.index_select(1, video_frame_indices.to(v.device).long())
-        y = self.lstm_merged(self._fuse(audio.float(), v))
-        return self.vad_merged(self.dropout(y.float(), dropout_rng))
+        with span("fusion"):
+            if video_frame_indices is not None:
+                v = v.index_select(1, video_frame_indices.to(v.device).long())
+            y = self._fuse(audio.float(), v)
+        y = self.lstm_merged(y)
+        with span("head"):
+            return self.vad_merged(self.dropout(y.float(), dropout_rng))
 
     def streaming_head(self, audio_feats: torch.Tensor, video: torch.Tensor,
                        carries: list, per_stream_norm: bool = False,

@@ -3,9 +3,10 @@
 ``nvcc`` compiles every ``avvad_tpu_torch/csrc/*.cu`` for sm_90a, one
 process per source, all started together, and links the objects into one
 library, ``build/avvad_tpu_torch/libavvad_kernels.so``, at first use, from
-the repository's own sources. The library exposes ``extern "C"`` functions
-that take raw device pointers and the stream, so the build needs no
-PyTorch headers and takes seconds. Nothing here runs at import time.
+the repository's own sources (each build counted as ``build.nvcc``). The
+library exposes ``extern "C"`` functions that take raw device pointers and
+the stream, so the build needs no PyTorch headers and takes seconds.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils import profiling
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -84,6 +87,7 @@ def build(force: bool = False) -> dict:
         return {"path": str(LIB_PATH), "seconds": 0.0, "ptxas": []}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
+    profiling.count("build.nvcc")
     t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     procs = [subprocess.Popen([nvcc, *ARCH, "-Xptxas", "-v", "-c", "-o", str(o),
@@ -109,14 +113,15 @@ def build(force: bool = False) -> dict:
 
 
 def kernel_lib() -> ctypes.CDLL:
-    """The bound library, built on first use."""
+    """The bound library, built on first use (the ``setup.kernels`` span)."""
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIB_PATH))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with profiling.setup_span("setup.kernels"):
+            build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib

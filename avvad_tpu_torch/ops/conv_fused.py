@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from .qparams import weight_qparams
 
 KERNEL_NAME = "int8_basic_block"
@@ -55,12 +56,6 @@ SMEM_ALIGN = 1024      # the ring starts on the swizzle pattern's period
 SMEM_LIMIT_SM90 = 232448
 SM_COUNT_H100 = 132
 
-# Kernel launches, counted by the CUDA wrapper only.
-launches = {KERNEL_NAME: 0}
-
-
-def reset_launches() -> None:
-    launches[KERNEL_NAME] = 0
 
 
 def conv_out(size: int, stride: int) -> int:
@@ -334,7 +329,7 @@ def _launch(x, w1, a1, b1, w2, a2, b2, wd, ad, bd, res_scale, stride, tiles):
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {rc} "
                            f"(x {tuple(x.shape)} -> {cout} channels, stride "
                            f"{stride}, plan {plan})")
-    launches[KERNEL_NAME] += 1
+    profiling.count("launch." + KERNEL_NAME)  # by the CUDA wrapper only
     return out
 
 

@@ -62,6 +62,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from .qparams import weight_qparams
 
 STATE_QUANTS = ("none", "bf16", "int8")
@@ -76,9 +77,6 @@ KERNEL_NAMES = {"none_persist": "lstm_f32h_persist",
                 "fwd_train": "lstm_fwd_train_f32h", "bwd": "lstm_bwd_f32h",
                 "probe_persist": "lstm_probe_persist", "probe": "lstm_probe"}
 
-# Kernel launches per variant, counted by the CUDA wrappers only. A
-# persistent kernel is one launch a layer, a per-step one T (or T + 1).
-launches = {k: 0 for k in KERNEL_NAMES}
 
 # Geometry of the persistent kernels (csrc/lstm_persistent.cu)
 PERSIST_UNITS = 16     # hidden units a CTA owns for the whole sequence
@@ -111,9 +109,13 @@ PERSIST_QUANT_STAGES = 4
 SMEM_LIMIT_SM90 = 232448
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+def launch_counts() -> dict:
+    """{variant: launches} since the last ``profiling.reset``: the CUDA
+    wrappers count each launch as ``launch.<kernel>`` in the recorder's
+    counters, a persistent kernel once a layer, a per-step one T (or
+    T + 1) times."""
+    done = profiling.launches()
+    return {v: done.get(k, 0) for v, k in KERNEL_NAMES.items()}
 
 
 def quant_row_bytes(h: int, variant: str) -> int:
@@ -477,7 +479,7 @@ def _launch(x_proj, w_hh, h0, c0, variant):
             bar = _barrier(dev, b)
             ptrs.append(bar.data_ptr())
         _run(variant, dev, getattr(lib, KERNEL_NAMES[variant]), *ptrs, b, t, h)
-    launches[variant] += 1 if persist else t
+    profiling.count("launch." + KERNEL_NAMES[variant], 1 if persist else t)
     return out
 
 
@@ -530,10 +532,10 @@ def lstm_bwd(dy: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
         bar = _barrier(dev, b)
         _run("bwd_persist", dev, kernel_lib().lstm_bwd_persist, *ptrs,
              bar.data_ptr(), b, t, h)
-        launches["bwd_persist"] += 1
+        profiling.count("launch.lstm_bwd_persist")
     else:
         _run("bwd", dev, kernel_lib().lstm_bwd_f32h, *ptrs, b, t, h)
-        launches["bwd"] += t + 1
+        profiling.count("launch.lstm_bwd_f32h", t + 1)
     return d_gates, dh0, dc
 
 
@@ -578,11 +580,11 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
     -> y (B, T, H), as ``lstm_probe_plain``. It takes apart the inference
     kernel that ``lstm_layer_fused`` runs at the shape (``probe_variant``):
     where ``persistent_plan`` takes it, ``lstm_probe_persist``, one
-    cooperative launch a layer, counted under ``launches["probe_persist"]``,
+    cooperative launch a layer, counted as ``launch.lstm_probe_persist``,
     whose "full" is ``lstm_f32h_persist`` and "h_bf16" ``lstm_bf16h_persist``
     bit for bit, and whose other modes are cuts of the fp32-h kernel;
     elsewhere the per-step ``lstm_probe`` (the ``lstm_f32h`` / ``lstm_bf16h``
-    instantiation), T launches counted under ``launches["probe"]``.
+    instantiation), T launches counted as ``launch.lstm_probe``.
     Batch-major like the other wrappers here (the TPU kernel is
     time-major). A CUDA ``x_proj`` launches the kernel or raises; a CPU one
     runs the plain version. Not for autograd."""
@@ -613,7 +615,7 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if probe_variant(mode, b, h, sms) == "probe":
         _run("probe", dev, kernel_lib().lstm_probe, *ptrs, b, t, h, PROBE_MODES.index(mode))
-        launches["probe"] += t
+        profiling.count("launch.lstm_probe", t)
         return y
     # "h_bf16"'s exchange of the rounded h, as lstm_bf16h_persist's
     hx = torch.zeros(2 if mode == "h_bf16" else 0, b, quant_row_bytes(h, "bf16_persist"),
@@ -622,7 +624,7 @@ def lstm_probe(x_proj: torch.Tensor, w_hh: torch.Tensor,
     _run("probe_persist", dev, kernel_lib().lstm_probe_persist, *ptrs, hx.data_ptr(),
          bar.data_ptr(), b, t, h, PROBE_MODES.index(mode),
          geometry="bf16_persist" if mode == "h_bf16" else "none_persist")
-    launches["probe_persist"] += 1
+    profiling.count("launch.lstm_probe_persist")
     return y
 
 

@@ -22,23 +22,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 KERNEL_NAME = "stem_epilogue_pool"            # NCHW input
 NHWC_KERNEL_NAME = "stem_epilogue_pool_nhwc"  # channels-last input
 HW_IN, HW_OUT = 34, 17
-
-# Kernel launches per kernel, counted by the CUDA wrapper only.
-launches = {KERNEL_NAME: 0, NHWC_KERNEL_NAME: 0}
 
 # Geometry of stem_epilogue_pool_nhwc (csrc/stem_epilogue_pool.cu)
 NHWC_THREADS = 256       # threads of a CTA
 NHWC_MAX_SLOTS = 8       # chunks in the ring at most (the kernel's mbarriers)
 NHWC_RING_BYTES = 65536  # a CTA's ring of chunks at most
 NHWC_SLICE_BYTES = 256   # bytes of a pixel's channels in one unit at most
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def nhwc_plan(c: int, elem_bytes: int) -> dict:
@@ -133,7 +127,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                              plan["slots"], bf16, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[name] += 1
+    profiling.count("launch." + name)  # by the CUDA wrapper only
     return out
 
 

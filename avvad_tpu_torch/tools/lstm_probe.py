@@ -42,9 +42,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.lstm_fused import (PROBE_MODES, STATE_QUANTS, launches, lstm_layer_fused,
-                              lstm_probe)
+from ..ops.lstm_fused import PROBE_MODES, STATE_QUANTS, lstm_layer_fused, lstm_probe
 from ..ops.stft import log_power_frontend
+from ..utils import profiling
 
 
 def _timeit(fn, iters: int, dev: torch.device) -> float:
@@ -99,7 +99,8 @@ def run(b: int = 64, t: int = 512, h: int = 1024, iters: int = 30,
     res = {"probe": {}, "probe_launches": {}, "h_bf16_vs_full": None,
            "lstm_layer_fused": {}, "frontend": {}}
     base = None
-    probe_count = lambda: launches["probe"] + launches["probe_persist"]  # noqa: E731
+    # lstm_probe and lstm_probe_persist
+    probe_count = lambda: sum(profiling.counters("launch.lstm_probe").values())  # noqa: E731
     for mode in modes:
         before = probe_count()
         ms = _timeit(lambda: lstm_probe(xp, w, h0, c0, mode), iters, dev)

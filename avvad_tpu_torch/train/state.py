@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..utils.profiling import setup_span
 
 
 @dataclass
@@ -48,11 +49,14 @@ def trainable_except_video_trunk(model: nn.Module) -> list:
     return [p for p in model.parameters() if p.requires_grad]
 
 
+@setup_span("setup.train_state")
 def create_train_state(model: nn.Module, learning_rate: float = 1e-4,
                        freeze_video_trunk: bool = False,
                        device: str | torch.device | None = None) -> TrainState:
     """Move ``model`` to ``device`` (the card unless ``device="cpu"``; no
-    card -> raises) and give it Adam over its trainable parameters."""
+    card -> raises) and give it Adam over its trainable parameters. The
+    call is the ``setup.train_state`` set-up span (Adam's constructor
+    imports ``torch._dynamo``)."""
     dev = resolve_device(device)
     pin_fp32()
     model.to(dev)

@@ -38,6 +38,7 @@ from ..models.losses import batch_f1_sums, masked_sequence_bce, mean_from_sums
 from ..models.vad_nets import DropoutRNG, dropout_generator
 from ..parallel.mesh import all_reduce_grads, batch_rows
 from ..parallel.sync import all_reduce_sum, data_parallel
+from ..utils.profiling import span
 
 MODALITIES = ("audio", "video", "av", "waveform")
 
@@ -129,11 +130,18 @@ def make_train_step(modality: str, eps: float = 1e-8, dropout: bool = False,
     Metrics are 0-d tensors on the state's device. ``dropout``: thread a
     per-step dropout generator (module docstring). ``mesh``: the rank-local
     part of the meshed step (module docstring); the state's model and
-    optimizer placed by ``parallel.shard_params`` / ``shard_opt_state``."""
+    optimizer placed by ``parallel.shard_params`` / ``shard_opt_state``.
+    The step is the ``train.step`` span, its stages ``train.forward``,
+    ``train.loss``, ``train.backward`` (``zero_grad`` and the backward
+    pass), ``train.optimizer`` and ``train.metrics``."""
     forward = _make_forward(modality, eps, train=True)
     spmd = _spmd(mesh)
 
     def train_step(state, batch, norm_stats=None):
+        with span("train.step"):
+            return _train_step(state, batch, norm_stats)
+
+    def _train_step(state, batch, norm_stats):
         rng = None
         if dropout:
             gen = dropout_generator(dropout_seed, state.step, state.device)
@@ -141,16 +149,20 @@ def make_train_step(modality: str, eps: float = 1e-8, dropout: bool = False,
             rng = (DropoutRNG(gen) if spmd is None else
                    DropoutRNG(gen, rows=spmd.rows(b), global_batch=b * spmd.n_data))
         with data_parallel(None if spmd is None else spmd.group):
-            logits, label, mask = forward(state, batch, norm_stats, rng)
-            loss = masked_sequence_bce(logits, label, mask, eps)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with span("train.forward"):
+                logits, label, mask = forward(state, batch, norm_stats, rng)
+            with span("train.loss"):
+                loss = masked_sequence_bce(logits, label, mask, eps)
+            with span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         if spmd is not None:
             all_reduce_grads([p for g in state.optimizer.param_groups
                               for p in g["params"]], spmd.group)
-        state.optimizer.step()
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
-        with torch.no_grad():
+        with span("train.metrics"), torch.no_grad():
             return state, _metrics(logits.detach(), label, mask, loss.detach(), eps, spmd)
 
     return train_step

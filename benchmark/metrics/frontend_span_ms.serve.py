@@ -1,0 +1,16 @@
+"""Device ms a serving step of the program's ``serve.frontend`` span (the STFT
+frontend and normalisation of ``make_waveform_serving_fn``), the inside twin
+of ``frontend_ms.serve``: over the traced window's profiled steps, from
+``avvad_tpu_torch.utils.profiling.snapshot()``; None where the program keeps
+no such span."""
+from avvad_tpu_torch.utils import profiling
+
+SPAN, STEP = "serve.frontend", "serve.step"
+
+
+def read(rec):
+    spans = profiling.snapshot()["spans"] if hasattr(profiling, "snapshot") else {}
+    s, step = spans.get(SPAN), spans.get(STEP)
+    if not (s and step and s["device_ms"] is not None):
+        return None
+    return s["count"] * s["device_ms"] / step["count"]

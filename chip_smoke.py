@@ -287,6 +287,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from avvad_tpu_torch.utils import profiling
+
 B, T, H = 64, 512, 1024
 RAGGED = (3, 7, 1024)
 HOP, FRAME_RATE = 256, 62.5
@@ -338,9 +340,13 @@ INT8_STATE_QUANTS = ("none", "int8")
 # recurrence on the same card: H100 80GB HBM3 (700 W) readings were
 # 3.8e-6 (none), 1.2e-5 (bf16) and 0 (int8); held at 1e-4
 PROB_TOL = 1e-4
-# spans of the serving step between the CUDA events that stage_hooks and
-# timed_step record
-STAGES = ("frontend", "tower", "fusion", "lstm", "head")
+# stages of the serving step between the edges of the program's spans
+# (profiling.span), by the marks that bound them
+SERVE_MARKS = {"serve.step": ("start", "end"), "tower": ("tower_start", "tower_end"),
+               "lstm": ("lstm_start", "lstm_end")}
+STAGES = {("start", "tower_start"): "frontend", ("tower_start", "tower_end"): "tower",
+          ("tower_end", "lstm_start"): "fusion", ("lstm_start", "lstm_end"): "lstm",
+          ("lstm_end", "end"): "head"}
 # the training slice: the reference recipe that bench.py --train sizes
 TRAIN_B = 16
 TRAIN_REPLACES = {"fwd_train_persist": "avvad_tpu/ops/lstm_pallas.py:279",
@@ -369,8 +375,18 @@ STEP_LOSS_REL_TOL = 1e-5
 # the remat step against the same step without, on the same card with cuDNN
 # deterministic: the same operations, recomputed
 REMAT_TOL = 1e-5
-# spans of a train step between the CUDA events of train_marks and
-# timed_train_step, by the marks that bound them
+# stages of the raw-waveform serving step, as STAGES
+RAW_SERVE_MARKS = {"serve.step": ("start", "end"), "encoder": ("encoder_start", "encoder_end"),
+                   "lstm": ("lstm_start", "lstm_end")}
+RAW_SERVE_STAGES = {("start", "encoder_start"): "input", ("encoder_start", "encoder_end"): "encoder",
+                    ("lstm_start", "lstm_end"): "lstm", ("lstm_end", "end"): "head"}
+# stages of a train step between the edges of the program's spans, by the
+# marks that bound them: the backward pass from the start of train.backward
+# (zero_grad, then loss.backward) to the optimizer step
+TRAIN_MARKS = {"train.step": ("start", "end"), "tower": ("tower_start", "tower_end"),
+               "encoder": ("encoder_start", "encoder_end"), "lstm": ("lstm_start", "lstm_end"),
+               "train.backward": ("backward_start", None),
+               "train.optimizer": ("optimizer_start", "optimizer_end")}
 TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end"): "tower",
                 ("start", "encoder_start"): "inputs",
                 ("encoder_start", "encoder_end"): "encoder_forward",
@@ -380,8 +396,6 @@ TRAIN_STAGES = {("start", "tower_start"): "inputs", ("tower_start", "tower_end")
                 ("lstm_start", "lstm_end"): "lstm_forward",
                 ("lstm_end", "backward_start"): "head_loss",
                 ("backward_start", "optimizer_start"): "backward",
-                ("backward_start", "tower_backward_start"): "backward_to_tower",
-                ("tower_backward_start", "optimizer_start"): "tower_backward",
                 ("optimizer_start", "optimizer_end"): "optimizer",
                 ("optimizer_end", "end"): "metrics"}
 # the probe kernel against its plain version (KERNEL_TOL's reasons: "full",
@@ -480,10 +494,10 @@ def check_lstm_kernel(lstm_fused, sq: str, shape: tuple, variant: str, tol: floa
     bit for bit -> max |kernel - plain|."""
     b, t, h = shape
     xp, w = lstm_inputs(b, t, h, seed=1)
-    lstm_fused.reset_launches()
+    reset_counts()
     y = lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in lstm_fused.launches.items() if v}
+    counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
     persist = variant.endswith("_persist")
     if counts != {variant: 1 if persist else t}:
         raise RuntimeError(f"{sq} B={b} T={t} H={h}: launch counts {counts}, expected "
@@ -524,13 +538,13 @@ def kernel_phase(lstm_fused):
     for sq in lstm_fused.STATE_QUANTS:
         kernel = lambda: lstm_fused.lstm_layer_fused(xp, w, state_quant=sq)  # noqa: E731
         # per step, persistent, persistent, per step: in turns on one card
-        lstm_fused.reset_launches()
+        reset_counts()
         with per_step_route(lstm_fused):
             step_ms = [cuda_ms(kernel, 5)]
         persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
         with per_step_route(lstm_fused):
             step_ms.append(cuda_ms(kernel, 5))
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
         if counts != {sq + "_persist": 12, sq: 12 * T}:
             raise RuntimeError(f"{sq}: timed the wrong route: {counts}")
         with per_step_route(lstm_fused):  # the per-step kernel at the main path's shape too
@@ -617,11 +631,11 @@ def int8_kernel_phase(n_frames: int) -> dict:
         name = stem_fused.KERNEL_NAME if layout == "nchw" else stem_fused.NHWC_KERNEL_NAME
         for n in (n_frames, N_RAGGED):
             x = stem_input(n, g, layout, dtype)
-            stem_fused.reset_launches()
+            reset_counts()
             y = stem_fused.stem_epilogue_pool_quant(x, a, b)
             torch.cuda.synchronize()
-            if stem_fused.launches[name] != 1 or sum(stem_fused.launches.values()) != 1:
-                raise RuntimeError(f"K3 {layout}: launches {stem_fused.launches}")
+            if profiling.launches() != {name: 1}:
+                raise RuntimeError(f"K3 {layout}: launches {profiling.launches()}")
             errs[name].append(lsb_diff(y, stem_fused.stem_epilogue_plain(x, a, b)))
             print(f"{name} ({layout} {str(dtype)[6:]}) N={n}: max {errs[name][-1][0]} LSB, "
                   f"{errs[name][-1][1]:.2e} of outputs differ")
@@ -631,10 +645,10 @@ def int8_kernel_phase(n_frames: int) -> dict:
     # the NCHW route's launches: one call of the op on NCHW input, the
     # counters at 0 before (no model path gives it NCHW input now)
     x_nchw = stem_input(n_frames, g, "nchw")
-    stem_fused.reset_launches()
+    reset_counts()
     stem_fused.stem_epilogue_pool_quant(x_nchw, a, b)
     torch.cuda.synchronize()
-    nchw_launches = stem_fused.launches[stem_fused.KERNEL_NAME]
+    nchw_launches = profiling.launches().get(stem_fused.KERNEL_NAME, 0)
     x_cl = x_nchw.contiguous(memory_format=torch.channels_last)
     # NCHW, channels-last, channels-last, NCHW: in turns on one card
     k3 = lambda x: stem_fused.stem_epilogue_pool_quant(x, a, b)  # noqa: E731
@@ -731,30 +745,44 @@ def _mark(marks: list, name: str = "") -> None:
     marks.append((name, ev))
 
 
-def stage_hooks(model, marks: list) -> list:
-    """Forward hooks that record a CUDA event at each edge of the video
-    tower and of the LSTM stack inside the served step -> hook handles.
-    With timed_step's events before and after the step these bound the
-    STAGES: frontend (and input normalisation), tower, fusion (gather, MCB,
-    signed sqrt, L2, BatchNorm), LSTM, head (Dense, sigmoid)."""
-    return [register(lambda *_: _mark(marks))
-            for mod in (model.tower, model.lstm_merged)
-            for register in (mod.register_forward_pre_hook,
-                             mod.register_forward_hook)]
+def spanned_step(fn, *args) -> tuple[float, list]:
+    """One call ``fn(*args)`` with the program's recorder on -> (host seconds
+    to the end of its device work, the span records of its step)."""
+    profiling.enable()
+    try:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        profiling.disable()
+    recs = profiling.records()
+    return dt, [r for r in recs if r["step"] == recs[-1]["step"]]
 
 
-def timed_step(fn, wave, video, marks: list) -> tuple[float, dict]:
+def span_stages(recs: list, marks: dict, stages: dict) -> dict:
+    """{stage: device ms} of one step's span records: the edges that
+    ``marks`` names (span -> marks at its start and end), in the order the
+    program reached them, paired as ``stages`` names them."""
+    edges = []
+    for r in recs:
+        a, b = marks.get(r["name"], (None, None))
+        if a and all(e[1] != a for e in edges):
+            edges.append((r["host_start_ns"], a, r["device_start_ms"]))
+        if b and all(e[1] != b for e in edges):
+            edges.append((r["host_end_ns"], b, r["device_end_ms"]))
+    edges.sort()
+    return {stages[(a, b)]: tb - ta for (_, a, ta), (_, b, tb) in zip(edges, edges[1:])
+            if (a, b) in stages}
+
+
+def timed_step(fn, *args) -> tuple[float, dict]:
     """One serving step -> (host seconds to the end of its device work,
-    {stage: device ms})."""
-    marks.clear()
-    t0 = time.perf_counter()
-    _mark(marks)
-    fn(wave, video)
-    _mark(marks)
-    torch.cuda.synchronize()
-    step = time.perf_counter() - t0
-    return step, {s: marks[i][1].elapsed_time(marks[i + 1][1])
-                  for i, s in enumerate(STAGES)}
+    {stage: device ms}): the STAGES frontend (and input normalisation),
+    tower, fusion (gather, MCB, signed sqrt, L2, BatchNorm), LSTM, head
+    (Dense, sigmoid), between the edges of the program's spans."""
+    dt, recs = spanned_step(fn, *args)
+    return dt, span_stages(recs, SERVE_MARKS, STAGES)
 
 
 # kernels of the int8 tower's stem by name in a profile (lower case): the
@@ -777,6 +805,16 @@ def stem_split(events) -> dict:
     return split
 
 
+def device_ops(prof) -> list:
+    """The profile's device operations by name (``key_averages``): device
+    entries only, since a CPU op's self device time repeats its kernels',
+    and without the device mirrors of the program's spans (user
+    annotations), which cover kernels counted already."""
+    spans = {e.name for e in prof.events() if e.is_user_annotation}
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0 and e.key not in spans]
+
+
 def profile_step(fn, *args) -> dict:
     """One step fn(*args) under torch.profiler -> device busy time, idle
     share, the kernels with the most device time and the stem's split."""
@@ -787,11 +825,7 @@ def profile_step(fn, *args) -> dict:
         fn(*args)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side entries only: a CPU op's self device time repeats its kernels'
-    events = sorted((e for e in prof.key_averages()
-                     if str(e.device_type).endswith("CUDA")
-                     and e.self_device_time_total > 0),
-                    key=lambda e: e.self_device_time_total, reverse=True)
+    events = sorted(device_ops(prof), key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -819,17 +853,11 @@ def check_probs(probs: torch.Tensor, label: str) -> None:
         raise RuntimeError(f"{label}: bad probabilities {tuple(probs.shape)}")
 
 
-def time_step(fn, model, wave, video, label: str, tail: str) -> dict:
+def time_step(fn, wave, video, label: str, tail: str) -> dict:
     """Best of 3 timed steps with the stage split, then one profiled step:
     one line of times and one {"profile": ...} line -> the profile."""
     torch.cuda.reset_peak_memory_stats()
-    marks = []
-    hooks = stage_hooks(model, marks)
-    try:
-        reps = [timed_step(fn, wave, video, marks) for _ in range(3)]
-    finally:
-        for hk in hooks:
-            hk.remove()
+    reps = [timed_step(fn, wave, video) for _ in range(3)]
     step, stage_ms = min(reps, key=lambda r: r[0])
     print(f"serving {label}: {1e3 * step:.2f} ms/step (reps "
           f"{[round(1e3 * s, 2) for s, _ in reps]}), {B * T / FRAME_RATE / step:.1f}x "
@@ -874,7 +902,7 @@ def main_path(lstm_fused, rows):
         err = (probs - ref).abs().max().item()
         if err > PROB_TOL:
             raise RuntimeError(f"{sq}: serving step vs plain LSTM {err}")
-        time_step(fn, model, wave, video, sq, f"launches {counts[variant]} {variant}, "
+        time_step(fn, wave, video, sq, f"launches {counts[variant]} {variant}, "
                   f"max|probs-plain| {err:.2e} (tol {PROB_TOL:g})")
     return model
 
@@ -920,7 +948,7 @@ def int8_path(rows):
         err = (probs - ref).abs().max().item()
         if err > INT8_PROB_TOL:
             raise RuntimeError(f"int8 tower {sq}: step vs plain K2/K3 {err}")
-        prof = time_step(fn, model, wave, video, f"int8_tower/{sq}",
+        prof = time_step(fn, wave, video, f"int8_tower/{sq}",
                          f"launches {counts}, max|probs-plain K2/K3| {err:.2e} "
                          f"(tol {INT8_PROB_TOL:g})")
         split = prof["stem_split_ms"]
@@ -973,8 +1001,7 @@ def stem_routes(trunk, video) -> None:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 f()
                 torch.cuda.synchronize()
-            events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
-                      and e.self_device_time_total > 0]
+            events = device_ops(prof)
             transforms[route] = stem_split(events)
             kernels[route] = [[e.key[:90], e.self_device_time_total / 1e3] for e in events]
     best = {k: min(v) for k, v in ms.items()}
@@ -1188,7 +1215,7 @@ def int8_stem_phase(int8_model, wave, video, idx) -> None:
     expect_launches(launch_counts(), {**serving_launches("int8"), conv_fused.KERNEL_NAME: 8,
                                       stem_fused.NHWC_KERNEL_NAME: 1}, "int8 stem step")
     check_probs(probs, "int8 stem step")
-    prof = time_step(fn, model, wave, video, "int8_tower_stem_int8/int8",
+    prof = time_step(fn, wave, video, "int8_tower_stem_int8/int8",
                      "the int8 stem, K3 + 8 x K2, K1b x 2")
     split = prof["stem_split_ms"]
     print(f"int8_tower_stem_int8/int8 stem in the profiled step: conv {split['conv']:.3f} ms, "
@@ -1215,7 +1242,7 @@ def mcb_precision_phase(int8_model, wave, video, idx) -> None:
                 mcb.precision = prec
                 probs[prec] = fn(wave, video)
                 check_probs(probs[prec], f"mcb {prec}")
-                time_step(fn, int8_model, wave, video, f"int8_tower/{sq}/mcb_{prec}",
+                time_step(fn, wave, video, f"int8_tower/{sq}/mcb_{prec}",
                           f"MCB precision {prec}")
             err[sq] = (probs["default"] - probs["highest"]).abs().max().item()
     finally:
@@ -1254,16 +1281,18 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def launch_counts() -> dict:
+    """{LSTM variant or kernel name: launches} since ``reset_counts``, from
+    the program's counters."""
     from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
 
-    return {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+    done = profiling.launches()
+    return {**lstm_fused.launch_counts(),
+            **{k: done.get(k, 0) for k in (conv_fused.KERNEL_NAME, stem_fused.KERNEL_NAME,
+                                            stem_fused.NHWC_KERNEL_NAME)}}
 
 
 def reset_counts() -> None:
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
-
-    for mod in (lstm_fused, conv_fused, stem_fused):
-        mod.reset_launches()
+    profiling.reset()
 
 
 @contextlib.contextmanager
@@ -1361,7 +1390,7 @@ def train_kernel_phase(lstm_fused) -> dict:
                            (OUT_OF_PLAN, "")):
         fwd, bwd = "fwd_train" + sfx, "bwd" + sfx
         xp, w, h0, c0, dy = train_inputs(b, t, h, seed=6)
-        lstm_fused.reset_launches()
+        reset_counts()
         y, c_seq, gates = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
         torch.cuda.synchronize()
         ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
@@ -1373,7 +1402,7 @@ def train_kernel_phase(lstm_fused) -> dict:
         ref = lstm_fused.lstm_bwd_plain(dy, gates, c_seq, c_prev, w)
         errs[bwd].append(max(rel_err(a, r) for a, r in zip(got, ref)))
         got = function_grads(lstm_fused, xp, w, h0, c0, dy)
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
         # the wrapper's call and the Function's: one launch each where the
         # kernel is persistent, T and T + 1 where it is per step
         expect = {fwd: 2 if sfx else 2 * t, bwd: 2 if sfx else 2 * (t + 1)}
@@ -1408,14 +1437,14 @@ def train_kernel_phase(lstm_fused) -> dict:
     rows = {}
     for kind, (kernel, plain, library) in calls.items():
         # per step, persistent, persistent, per step: in turns on one card
-        lstm_fused.reset_launches()
+        reset_counts()
         with per_step_route(lstm_fused):
             step_ms = [cuda_ms(kernel, 5)]
         persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
         with per_step_route(lstm_fused):
             step_ms.append(cuda_ms(kernel, 5))
-        if lstm_fused.launches[kind + "_persist"] != 12 or not lstm_fused.launches[kind]:
-            raise RuntimeError(f"{kind}: timed the wrong route: {lstm_fused.launches}")
+        if lstm_fused.launch_counts()[kind + "_persist"] != 12 or not lstm_fused.launch_counts()[kind]:
+            raise RuntimeError(f"{kind}: timed the wrong route: {lstm_fused.launch_counts()}")
         plain_ms, library_ms = cuda_ms(plain, 2), cuda_ms(library, 5)
         bound_ms, bound_by = train_bound(TRAIN_B, T, H, kind)
         for name, reps in ((kind + "_persist", persist_ms), (kind, step_ms)):
@@ -1455,53 +1484,12 @@ def train_batch(t: int, b: int, modality: str, seed: int):
                  label=cuda(label), lengths=lengths, mask=cuda(mask))
 
 
-def train_marks(model, optimizer, marks: list) -> list:
-    """Hooks that record CUDA events inside a train step at the tower's (or
-    the WaveNet encoder's) and the LSTM stack's edges, when the logits'
-    gradient is formed (the start of the backward pass), when the tower's
-    output gradient is (the start of the trunk's backward, where the trunk
-    trains) and around the optimizer step -> handles."""
-    def mark(name):
-        return lambda *_: _mark(marks, name)
-
-    def on_tower(_module, _inputs, feats):
-        if feats.requires_grad:
-            feats.register_hook(mark("tower_backward_start"))
-
-    handles = []
-    if hasattr(model, "wavenet_en"):
-        handles += [model.wavenet_en.register_forward_pre_hook(mark("encoder_start")),
-                    model.wavenet_en.register_forward_hook(mark("encoder_end"))]
-    if hasattr(model, "tower"):
-        handles += [model.tower.register_forward_pre_hook(mark("tower_start")),
-                    model.tower.register_forward_hook(mark("tower_end")),
-                    model.tower.register_forward_hook(on_tower)]
-    lstm = next(getattr(model, n) for n in ("lstm_merged", "lstm_video", "lstm_audio")
-                if hasattr(model, n))
-
-    def on_logits(_module, _inputs, logits):
-        logits.register_hook(mark("backward_start"))
-
-    handles += [lstm.register_forward_pre_hook(mark("lstm_start")),
-                lstm.register_forward_hook(mark("lstm_end")),
-                model.register_forward_hook(on_logits),
-                optimizer.register_step_pre_hook(mark("optimizer_start")),
-                optimizer.register_step_post_hook(mark("optimizer_end"))]
-    return handles
-
-
-def timed_train_step(step, state, batch, marks: list) -> tuple[float, dict]:
+def timed_train_step(step, state, batch) -> tuple[float, dict]:
     """One train step -> (host seconds to the end of its device work,
-    {stage: device ms})."""
-    marks.clear()
-    t0 = time.perf_counter()
-    _mark(marks, "start")
-    step(state, batch)
-    _mark(marks, "end")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    return dt, {TRAIN_STAGES[(a, b)]: ea.elapsed_time(eb)
-                for (a, ea), (b, eb) in zip(marks, marks[1:])}
+    {stage: device ms}) between the edges of the program's spans
+    (TRAIN_STAGES)."""
+    dt, recs = spanned_step(step, state, batch)
+    return dt, span_stages(recs, TRAIN_MARKS, TRAIN_STAGES)
 
 
 def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int = T,
@@ -1588,13 +1576,7 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     if grad_err > STEP_GRAD_REL_TOL or loss_err > STEP_LOSS_REL_TOL:
         raise RuntimeError(f"train {label}: step vs plain recurrence {grad_err}, {loss_err}")
     torch.cuda.reset_peak_memory_stats()
-    marks = []
-    hooks = train_marks(state.model, state.optimizer, marks)
-    try:
-        reps = [timed_train_step(step, state, batch, marks) for _ in range(3)]
-    finally:
-        for hk in hooks:
-            hk.remove()
+    reps = [timed_train_step(step, state, batch) for _ in range(3)]
     dt, stage_ms = min(reps, key=lambda r: r[0])
     print(f"train {label}: {1e3 * dt:.2f} ms/step (reps "
           f"{[round(1e3 * r[0], 2) for r in reps]}), {b * t / FRAME_RATE / dt:.1f}x "
@@ -1609,10 +1591,10 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
         for sq in lstm_fused.STATE_QUANTS:
             for cell in state.model.lstm_audio.layers():
                 cell.state_quant = sq
-            lstm_fused.reset_launches()
+            reset_counts()
             probs = predict(state, batch)
             torch.cuda.synchronize()
-            counts = {k: v for k, v in lstm_fused.launches.items() if v}
+            counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
             with plain_inference(lstm_fused):
                 err = (probs - predict(state, batch)).abs().max().item()
             print(f"inference {modality} {sq} outside the plan: launches {counts}, "
@@ -1640,11 +1622,11 @@ def trainer_phase(state, modality: str) -> None:
     valid = [train_batch(t, 4, modality, seed=12)]
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as model_dir:
-        lstm_fused.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         last = Trainer(state, modality, model_dir).fit(train, valid, end_epoch=2)
         torch.cuda.synchronize()
-        counts = dict(lstm_fused.launches)
+        counts = dict(lstm_fused.launch_counts())
         expect = {k: 0 for k in counts}
         # 2 train batches x 2 layers, one persistent launch each way; the
         # eval pass runs the persistent K1a, one launch a layer
@@ -1703,11 +1685,11 @@ def remat_phase() -> None:
                          seed=0)
         state = create_train_state(model, learning_rate=1e-4)
         torch.backends.cudnn.deterministic = True
-        lstm_fused.reset_launches()
+        reset_counts()
         step(state, batch)
         torch.cuda.synchronize()
         torch.backends.cudnn.deterministic = False
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
         if counts != {"fwd_train_persist": 2, "bwd_persist": 2}:
             raise RuntimeError(f"remat={remat}: launch counts {counts}")
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
@@ -1770,10 +1752,10 @@ def probe_kernel_phase(lstm_fused, tool) -> dict:
         g = torch.Generator().manual_seed(4)
         h0 = torch.tanh(torch.randn(b, h, generator=g)).cuda()
         c0 = torch.randn(b, h, generator=g).cuda()
-        lstm_fused.reset_launches()
+        reset_counts()
         y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
         torch.cuda.synchronize()
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
         if counts != {route: 1 if route == "probe_persist" else t}:
             raise RuntimeError(f"probe {mode} B={b} T={t} H={h}: launches {counts}, "
                                f"expected {route} alone")
@@ -1806,13 +1788,13 @@ def probe_kernel_phase(lstm_fused, tool) -> dict:
             if errs["probe"][-1] > PROBE_TOL[mode]:
                 raise RuntimeError(f"per-step probe {mode}: {errs['probe'][-1]}")
         # per step, persistent, persistent, per step: in turns on one card
-        lstm_fused.reset_launches()
+        reset_counts()
         with per_step_route(lstm_fused):
             step_ms = [cuda_ms(kernel, 5)]
         persist_ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
         with per_step_route(lstm_fused):
             step_ms.append(cuda_ms(kernel, 5))
-        counts = {k: v for k, v in lstm_fused.launches.items() if v}
+        counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
         if counts != {"probe_persist": 12, "probe": 12 * T}:
             raise RuntimeError(f"probe {mode}: timed the wrong route: {counts}")
         plain_ms = cuda_ms(lambda: lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode), 2)
@@ -1853,10 +1835,10 @@ def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
     its default shape (the persistent P1) and at a shape outside the plan
     (the per-step P1), each with the counters at 0 before."""
     iters = 30
-    lstm_fused.reset_launches()
+    reset_counts()
     res = tool.main([])
     torch.cuda.synchronize()
-    counts = dict(lstm_fused.launches)
+    counts = dict(lstm_fused.launch_counts())
     # each timing is a warm-up and `iters` calls; "full" and "h_bf16" are
     # run once more each for their difference
     expect = {k: 0 for k in counts}
@@ -1876,10 +1858,10 @@ def probe_tool_phase(lstm_fused, tool, rows: dict) -> None:
     print(json.dumps({"probe_tool": res, "launches": counts}))
     # outside the plan (H % 4 != 0): the per-step probe, T launches a call
     b, t, h = OUT_OF_PLAN_STEP["b"], OUT_OF_PLAN_STEP["t"], OUT_OF_PLAN_STEP["h"]
-    lstm_fused.reset_launches()
+    reset_counts()
     res = tool.main(["--b", str(b), "--t", str(t), "--h", str(h), "--iters", "2"])
     torch.cuda.synchronize()
-    counts = {k: v for k, v in lstm_fused.launches.items() if v}
+    counts = {k: v for k, v in lstm_fused.launch_counts().items() if v}
     if counts.get("probe") != t * (4 * 3 + 2) or any(k.endswith("_persist") for k in counts):
         raise RuntimeError(f"probe tool outside the plan: launch counts {counts}")
     for mode, n in res["probe_launches"].items():
@@ -2489,13 +2471,13 @@ def corpus_fit(state, sources, stats, prefetch: bool) -> dict:
                           shuffle=s == "train") for s in ("train", "validation")]
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as model_dir:
-        lstm_fused.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         Trainer(state, "av", model_dir, norm_stats=stats, prefetch=prefetch).fit(
             *loaders, end_epoch=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(lstm_fused.launches)
+        counts = dict(lstm_fused.launch_counts())
         epoch_log = (Path(model_dir) / "output_epoch.log").read_text()
     n_train, n_valid = (len(loader) for loader in loaders)
     expect = {k: 0 for k in counts}
@@ -2877,27 +2859,9 @@ def raw_serving_phase() -> None:
     if not err <= RAW_CPU_TOL:
         raise RuntimeError(f"raw serving: card against CPU {err}")
     del cpu
-    marks = []
-    hooks = [register(lambda *_: _mark(marks))
-             for mod in (model.wavenet_en, model.lstm_audio)
-             for register in (mod.register_forward_pre_hook, mod.register_forward_hook)]
     torch.cuda.reset_peak_memory_stats()
-    reps = []
-    try:
-        for _ in range(3):
-            marks.clear()
-            t0 = time.perf_counter()
-            _mark(marks)
-            fn(wave)
-            _mark(marks)
-            torch.cuda.synchronize()
-            ev = [e for _, e in marks]
-            reps.append((time.perf_counter() - t0, {
-                "input": ev[0].elapsed_time(ev[1]), "encoder": ev[1].elapsed_time(ev[2]),
-                "lstm": ev[3].elapsed_time(ev[4]), "head": ev[4].elapsed_time(ev[5])}))
-    finally:
-        for hk in hooks:
-            hk.remove()
+    reps = [spanned_step(fn, wave) for _ in range(3)]
+    reps = [(dt, span_stages(recs, RAW_SERVE_MARKS, RAW_SERVE_STAGES)) for dt, recs in reps]
     step, stage_ms = min(reps, key=lambda r: r[0])
     peak = torch.cuda.max_memory_allocated() / 2**30
     audio_s = B * T / FRAME_RATE  # the label frames served, as every x real time here
@@ -2971,13 +2935,7 @@ def raw_train_phase() -> None:
     if counts or not np.isfinite(metrics["loss"].item()):
         raise RuntimeError(f"raw train: launches {counts}, loss {metrics['loss'].item()}")
     torch.cuda.reset_peak_memory_stats()
-    marks = []
-    hooks = train_marks(state.model, state.optimizer, marks)
-    try:
-        reps = [timed_train_step(step, state, batch, marks) for _ in range(3)]
-    finally:
-        for hk in hooks:
-            hk.remove()
+    reps = [timed_train_step(step, state, batch) for _ in range(3)]
     dt, stage_ms = min(reps, key=lambda r: r[0])
     peak = torch.cuda.max_memory_allocated() / 2**30
     audio_s = TRAIN_B * T / FRAME_RATE

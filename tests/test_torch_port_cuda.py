@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+from avvad_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -49,13 +50,13 @@ def test_kernel_matches_plain(cuda, state_quant, b, t, h):
     c0 = torch.randn(b, h, generator=g).to(cuda)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     variant = lstm_fused.infer_variant(state_quant, b, h, sms)
-    lstm_fused.reset_launches()
+    profiling.reset()
     y = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
     torch.cuda.synchronize()
-    expect = dict.fromkeys(lstm_fused.launches, 0)
+    expect = dict.fromkeys(lstm_fused.KERNEL_NAMES, 0)
     persist = variant.endswith("_persist")
     expect[variant] = 1 if persist else t
-    assert lstm_fused.launches == expect
+    assert lstm_fused.launch_counts() == expect
     ref = lstm_fused.lstm_layer_plain(xp, w, h0, c0, state_quant=state_quant)
     assert y.shape == (b, t, h) and torch.isfinite(y).all()
     assert (y - ref).abs().max().item() < ATOL[state_quant]
@@ -74,7 +75,7 @@ def test_quant_persistent_kernels_match_the_per_step_ones(cuda, state_quant, b, 
     bf16 within the tensor cores' other fp32 summation order. (200, 4, 1024)
     walks 13 (bf16) or 7 (int8) batch tiles a CTA in four groups."""
     xp, w, h0, c0 = _train_inputs(b, t, h, cuda, seed=11)
-    lstm_fused.reset_launches()
+    profiling.reset()
     y = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
     plan, lstm_fused.persistent_plan = lstm_fused.persistent_plan, lambda *_a, **_k: None
     try:
@@ -82,8 +83,9 @@ def test_quant_persistent_kernels_match_the_per_step_ones(cuda, state_quant, b, 
     finally:
         lstm_fused.persistent_plan = plan
     torch.cuda.synchronize()
-    assert lstm_fused.launches[state_quant + "_persist"] == 1
-    assert lstm_fused.launches[state_quant] == t
+    counts = lstm_fused.launch_counts()
+    assert counts[state_quant + "_persist"] == 1
+    assert counts[state_quant] == t
     if state_quant == "int8":
         assert torch.equal(y, per_step)
     else:
@@ -126,9 +128,10 @@ def test_inference_route_on_this_card(cuda):
     y = lstm_fused.lstm_layer_fused(xp, w, h0, c0)
     plan, lstm_fused.persistent_plan = lstm_fused.persistent_plan, lambda *_a, **_k: None
     try:
-        lstm_fused.reset_launches()
+        profiling.reset()
         per_step = lstm_fused.lstm_layer_fused(xp, w, h0, c0)
-        assert lstm_fused.launches["none"] == 6 and not lstm_fused.launches["none_persist"]
+        counts = lstm_fused.launch_counts()
+        assert counts["none"] == 6 and not counts["none_persist"]
     finally:
         lstm_fused.persistent_plan = plan
     assert (y - per_step).abs().max().item() < ATOL["none"]
@@ -209,10 +212,10 @@ def test_int8_basic_block_matches_plain(cuda, geom):
     spec = random_block(cin, cout, stride, geom, cuda)
     g = torch.Generator().manual_seed(100 + geom)
     x = torch.randint(-127, 128, (37, h, h, cin), generator=g, dtype=torch.int8).to(cuda)
-    before = conv_fused.launches["int8_basic_block"]
+    before = profiling.launches().get(conv_fused.KERNEL_NAME, 0)
     y = _block(conv_fused.basic_block_int8, x, spec, stride)
     torch.cuda.synchronize()
-    assert conv_fused.launches["int8_basic_block"] - before == 1
+    assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) - before == 1
     ref = _block(conv_fused.basic_block_int8_plain, x, spec, stride)
     ho = conv_fused.conv_out(h, stride)
     assert y.shape == ref.shape == (37, ho, ho, cout)
@@ -252,7 +255,7 @@ def test_int8_basic_block_refuses_what_the_plan_refuses(cuda):
     """A frame whose tiles exceed the shared memory raises with the plan's
     reason; tiles of another weight's shape raise too. Nothing is launched."""
     spec = random_block(64, 64, 1, 0, cuda)
-    before = conv_fused.launches["int8_basic_block"]
+    before = profiling.launches().get(conv_fused.KERNEL_NAME, 0)
     with pytest.raises(ValueError, match="shared memory"):
         _block(conv_fused.basic_block_int8,
                torch.zeros(1, 64, 64, 64, dtype=torch.int8, device=cuda), spec, 1)
@@ -262,7 +265,7 @@ def test_int8_basic_block_refuses_what_the_plan_refuses(cuda):
             torch.zeros(2, 5, 5, 64, dtype=torch.int8, device=cuda),
             *conv_fused._block_args(spec), stride=1,
             tiles=conv_fused.pack_block_tiles(other["w1"], other["w2"], other["wd"]))
-    assert conv_fused.launches["int8_basic_block"] == before
+    assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) == before
 
 
 def test_int8_trunk_kernels_match_plain(cuda):
@@ -274,10 +277,10 @@ def test_int8_trunk_kernels_match_plain(cuda):
         specs.append(random_block(cin, cout, stride, 20 + i, cuda))
         cin = cout
     specs[-1]["out_scale"] = torch.tensor(0.05, device=cuda)
-    before = conv_fused.launches["int8_basic_block"]
+    before = profiling.launches().get(conv_fused.KERNEL_NAME, 0)
     feats = conv_fused.trunk_features_int8(x, specs)
     torch.cuda.synchronize()
-    assert conv_fused.launches["int8_basic_block"] - before == 8
+    assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) - before == 8
     ref = x
     for spec, (_, stride) in zip(specs, conv_fused.TRUNK_GEOM):
         ref = _block(conv_fused.basic_block_int8_plain, ref, spec, stride)
@@ -303,10 +306,10 @@ def test_stem_epilogue_matches_plain(cuda, dtype, layout, n):
         x = x.contiguous(memory_format=torch.channels_last)
     a = ((torch.rand(64, generator=g) * 20 + 5) * (torch.rand(64, generator=g) - 0.3).sign()).to(cuda)
     b = (torch.randn(64, generator=g) * 10 + 20).to(cuda)
-    stem_fused.reset_launches()
+    profiling.reset()
     y = stem_fused.stem_epilogue_pool_quant(x, a, b)
     torch.cuda.synchronize()
-    assert stem_fused.launches == {**dict.fromkeys(stem_fused.launches, 0), STEM_KERNEL[layout]: 1}
+    assert profiling.counters("launch.stem") == {"launch." + STEM_KERNEL[layout]: 1}
     ref = stem_fused.stem_epilogue_plain(x, a, b)
     assert y.shape == (n, 17, 17, 64) and y.dtype == torch.int8
     torch.testing.assert_close(y, ref, rtol=0, atol=0)
@@ -330,10 +333,10 @@ def test_stem_epilogue_nhwc_shapes(cuda, n, c, dtype):
     x = x.permute(0, 3, 1, 2).to(cuda, dtype)
     a = ((torch.rand(c, generator=g) * 10 + 2) * (torch.rand(c, generator=g) - 0.4).sign()).to(cuda)
     b = (torch.randn(c, generator=g) * 20 + 40).to(cuda)
-    stem_fused.reset_launches()
+    profiling.reset()
     y = stem_fused.stem_epilogue_pool_quant(x, a, b)
     torch.cuda.synchronize()
-    assert stem_fused.launches[stem_fused.NHWC_KERNEL_NAME] == 1
+    assert profiling.launches()[stem_fused.NHWC_KERNEL_NAME] == 1
     torch.testing.assert_close(y, stem_fused.stem_epilogue_plain(x, a, b), rtol=0, atol=0)
 
 
@@ -383,14 +386,13 @@ def test_int8_serving_fn_on_card_matches_cpu(cuda):
     for dev in ("cpu", "cuda"):
         fn = make_waveform_serving_fn(copy.deepcopy(model), t_frames=16,
                                       video_frame_indices=idx, device=dev)
-        conv_fused.reset_launches()
-        stem_fused.reset_launches()
+        profiling.reset()
         probs[dev] = fn(wave, video).cpu()
         expect = 8 if dev == "cuda" else 0
-        assert conv_fused.launches["int8_basic_block"] == expect
+        assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) == expect
         # the stem conv writes channels-last: the channels-last epilogue
-        assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0,
-                                       stem_fused.NHWC_KERNEL_NAME: expect // 8}
+        assert profiling.counters("launch.stem") == (
+            {"launch." + stem_fused.NHWC_KERNEL_NAME: 1} if expect else {})
     torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-4, rtol=0)
 
 
@@ -418,7 +420,8 @@ def _train_launches(b, t, h, calls=1):
 
 
 def _train_counts():
-    return {k: lstm_fused.launches[k] for k in lstm_fused.TRAIN_KERNELS}
+    counts = lstm_fused.launch_counts()
+    return {k: counts[k] for k in lstm_fused.TRAIN_KERNELS}
 
 
 # (3, 7, 1030), (2, 3, 1120) and (4, 2, 2048) lie outside the persistent
@@ -435,7 +438,7 @@ def test_train_kernels_match_plain(cuda, b, t, h):
     shape takes."""
     xp, w, h0, c0 = _train_inputs(b, t, h, cuda)
     c0_before = c0.clone()
-    lstm_fused.reset_launches()
+    profiling.reset()
     got = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
     torch.cuda.synchronize()
     expect = _train_launches(b, t, h)
@@ -466,7 +469,7 @@ def test_recurrence_function_grads_match_plain(cuda, monkeypatch):
         (lstm_fused.LSTMRecurrence.apply(*args) * r).sum().backward()
         return [a.grad for a in args]
 
-    lstm_fused.reset_launches()
+    profiling.reset()
     got = grads()
     assert _train_counts() == _train_launches(4, 33, 256)
     monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
@@ -549,14 +552,14 @@ def test_av_train_step_kernels_match_plain(cuda, monkeypatch):
             monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
         state = create_train_state(copy.deepcopy(model), freeze_video_trunk=True,
                                    device=cuda)
-        lstm_fused.reset_launches()
+        profiling.reset()
         state, metrics = make_train_step("av")(state, batch)
         torch.cuda.synchronize()
         # two layers: two K1d and two K1e calls
         expect = (dict.fromkeys(lstm_fused.TRAIN_KERNELS, 0) if plain
                   else _train_launches(2, 16, 64, calls=2))
         assert _train_counts() == expect
-        assert lstm_fused.launches["none"] == 0
+        assert lstm_fused.launch_counts()["none"] == 0
         results.append((metrics, {n: p.grad for n, p in state.model.named_parameters()
                                   if p.grad is not None}))
     (m_k, g_k), (m_p, g_p) = results
@@ -593,7 +596,7 @@ def test_video_train_step_kernels_match_plain(cuda, monkeypatch, remat):
             monkeypatch.setattr(lstm_fused, "lstm_fwd_train", lstm_fused.lstm_fwd_train_plain)
             monkeypatch.setattr(lstm_fused, "lstm_bwd", lstm_fused.lstm_bwd_plain)
         state = create_train_state(copy.deepcopy(model), device=cuda)
-        lstm_fused.reset_launches()
+        profiling.reset()
         state, metrics = make_train_step("video")(state, batch)
         torch.cuda.synchronize()
         expect = (dict.fromkeys(lstm_fused.TRAIN_KERNELS, 0) if plain
@@ -630,14 +633,13 @@ def test_int8_video_ticks_match_plain(cuda, monkeypatch):
             ms.feed(i, video_frames=vid[i])
         out = []
         for _ in range(2):
-            conv_fused.reset_launches()
-            stem_fused.reset_launches()
+            profiling.reset()
             got = ms.tick()
             assert set(got) == {0, 1}
             if count:
-                assert conv_fused.launches["int8_basic_block"] == 8
-                assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0,
-                                               stem_fused.NHWC_KERNEL_NAME: 1}
+                assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) == 8
+                assert profiling.counters("launch.stem") == {
+                    "launch." + stem_fused.NHWC_KERNEL_NAME: 1}
             out.append(np.stack([got[0], got[1]]))
         return np.concatenate(out, axis=1)
 
@@ -671,15 +673,15 @@ def test_probe_kernel_matches_plain(cuda, mode, b, t, h):
     h0 = torch.from_numpy(np.tanh(rng.normal(size=(b, h))).astype(np.float32)).to(cuda)
     c0 = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda)
     c0_before = c0.clone()
-    lstm_fused.reset_launches()
+    profiling.reset()
     y = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
     torch.cuda.synchronize()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     route = lstm_fused.probe_variant(mode, b, h, sms)
     assert route == ("probe" if h in (1030, 1022) else "probe_persist")
     # counted under the probe's route only
-    assert lstm_fused.launches == {**dict.fromkeys(lstm_fused.launches, 0),
-                                   route: t if route == "probe" else 1}
+    assert lstm_fused.launch_counts() == {**dict.fromkeys(lstm_fused.KERNEL_NAMES, 0),
+                                          route: t if route == "probe" else 1}
     assert torch.equal(c0, c0_before)  # the kernel advances a copy
     ref = lstm_fused.lstm_probe_plain(xp, w, h0, c0, mode)
     assert y.shape == (b, t, h) and torch.isfinite(y).all()
@@ -699,12 +701,13 @@ def test_persistent_probe_equals_the_serving_kernels(cuda, b, t, h):
     h0 = torch.from_numpy(np.tanh(rng.normal(size=(b, h))).astype(np.float32)).to(cuda)
     c0 = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda)
     for mode, sq in (("full", "none"), ("h_bf16", "bf16")):
-        lstm_fused.reset_launches()
+        profiling.reset()
         got = lstm_fused.lstm_probe(xp, w, h0, c0, mode)
         want = lstm_fused.lstm_layer_fused(xp, w, h0, c0, sq)
         torch.cuda.synchronize()
-        assert lstm_fused.launches["probe_persist"] == 1
-        assert lstm_fused.launches[sq + "_persist"] == 1
+        counts = lstm_fused.launch_counts()
+        assert counts["probe_persist"] == 1
+        assert counts[sq + "_persist"] == 1
         assert torch.equal(got, want), mode
 
 
@@ -786,11 +789,10 @@ def test_exported_int8_step_replays_the_kernels(cuda, tmp_path):
     ServingArtifact.build({"b2": (fn, (wave, video))}).save(path)
     loaded = ServingArtifact.load(path)
     assert len(loaded.meta["custom_ops"]["b2"]) == 3 and loaded.meta["device"] == "cuda"
-    for mod in (lstm_fused, conv_fused, stem_fused):
-        mod.reset_launches()
+    profiling.reset()
     got = loaded.call("b2", wave, video)
     torch.cuda.synchronize()
-    assert conv_fused.launches[conv_fused.KERNEL_NAME] == 8
-    assert stem_fused.launches == {stem_fused.KERNEL_NAME: 0, stem_fused.NHWC_KERNEL_NAME: 1}
-    assert sum(lstm_fused.launches.values()) == 2
+    assert profiling.launches().get(conv_fused.KERNEL_NAME, 0) == 8
+    assert profiling.counters("launch.stem") == {"launch." + stem_fused.NHWC_KERNEL_NAME: 1}
+    assert sum(lstm_fused.launch_counts().values()) == 2
     assert torch.equal(got, live)

@@ -34,8 +34,8 @@ from avvad_tpu_torch import evaluate
 from avvad_tpu_torch.convert import from_flax_variables
 from avvad_tpu_torch.data import AudioVisualSource, DataLoader, VideoSequenceSource
 from avvad_tpu_torch.models import AVVAD
-from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
 from avvad_tpu_torch.train import create_train_state
+from avvad_tpu_torch.utils import profiling
 from test_torch_port_data import build_tree, write_raw_corpus
 
 H, MCB_OUT = 32, 64
@@ -88,12 +88,12 @@ def _evaluate_both(tree, tmp, jstate, model, tag):
                                               out["jdir"], norm_stats=stats, verbose=False,
                                               **EVAL_KW)
     state = create_train_state(model, device="cpu")
-    before = {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+    before = profiling.launches()
     out["report"] = evaluate.evaluate_split(state, AudioVisualSource(root, "test"), "av",
                                             out["dir"], norm_stats=stats, verbose=False,
                                             **EVAL_KW)
     # CPU tensors launch nothing
-    assert before == {**lstm_fused.launches, **conv_fused.launches, **stem_fused.launches}
+    assert before == profiling.launches()
     return out
 
 

@@ -23,6 +23,7 @@ import torch
 from avvad_tpu.ops import conv_pallas as jcp
 from avvad_tpu_torch.models.resnet import ResNet18
 from avvad_tpu_torch.ops import _build, conv_fused as cf
+from avvad_tpu_torch.utils import profiling
 
 TRUNK = list(zip(cf.TRUNK_GEOM, (64,) + cf.TRUNK_WIDTHS[:-1], cf.TRUNK_WIDTHS))
 
@@ -358,12 +359,12 @@ def test_cpu_block_takes_the_plain_version_and_ignores_tiles():
     spec = _random_spec(32, 32, 1, seed=3)
     x = torch.randint(0, 128, (3, 5, 5, 32), dtype=torch.int8,
                       generator=torch.Generator().manual_seed(2))
-    before = dict(cf.launches)
+    before = profiling.launches()
     ref = cf.basic_block_int8_plain(x, *cf._block_args(spec), stride=1)
     tiles = cf.pack_block_tiles(spec["w1"], spec["w2"])
     assert torch.equal(cf.basic_block_int8(x, *cf._block_args(spec), stride=1, tiles=tiles), ref)
     assert torch.equal(cf.basic_block_int8(x, *cf._block_args(spec), stride=1), ref)
-    assert cf.launches == before  # CPU tensors launch nothing
+    assert profiling.launches() == before  # CPU tensors launch nothing
 
 
 # --- the fold cache ---

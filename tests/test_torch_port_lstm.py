@@ -17,7 +17,7 @@ from avvad_tpu.models.lstm import select_last as jselect_last
 from avvad_tpu.ops.lstm_pallas import lstm_layer_fused as jlstm_layer_fused
 from avvad_tpu.ops.qparams import weight_qparams as jweight_qparams
 from avvad_tpu_torch.models.lstm import LSTMStack, select_last
-from avvad_tpu_torch.ops.lstm_fused import launches, lstm_layer_fused
+from avvad_tpu_torch.ops.lstm_fused import launch_counts, lstm_layer_fused
 from avvad_tpu_torch.ops.qparams import weight_qparams
 
 # fp32 paths: the same arithmetic in another summation order, a few ulp of
@@ -67,9 +67,9 @@ def test_lstm_layer_matches_pallas(state_quant, with_state):
         kw_t = dict(h0=_t(state[0]), c0=_t(state[1]))
     y_j = jlstm_layer_fused(jnp.asarray(xp), jnp.asarray(w), interpret=True,
                             state_quant=state_quant, **kw_j)
-    before = dict(launches)
+    before = launch_counts()
     y_t = lstm_layer_fused(_t(xp), _t(w), state_quant=state_quant, **kw_t)
-    assert launches == before  # a CPU tensor never counts a kernel launch
+    assert launch_counts() == before  # a CPU tensor never counts a kernel launch
     assert y_t.shape == (3, 9, 32) and y_t.dtype == torch.float32
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=ATOL_F32)
 

@@ -175,7 +175,7 @@ def test_signature_matches_the_c_declaration(name):
 
 def test_kernel_names_are_bound_entries():
     assert set(lstm_fused.KERNEL_NAMES.values()) <= set(_build.SIGNATURES)
-    assert set(lstm_fused.TRAIN_KERNELS) <= set(lstm_fused.launches)
+    assert set(lstm_fused.TRAIN_KERNELS) <= set(lstm_fused.launch_counts())
     assert set(lstm_fused.PERSIST_K_GROUPS) == {FWD, BWD}
 
 
@@ -458,7 +458,7 @@ def test_contract_covers_every_k_once():
 
 def test_cpu_tensors_take_the_plain_versions():
     xp, w, h0, c0, dy = _inputs(2, 3, 32, seed=3)
-    before = dict(lstm_fused.launches)
+    before = lstm_fused.launch_counts()
     got = lstm_fused.lstm_fwd_train(xp, w, h0, c0)
     ref = lstm_fused.lstm_fwd_train_plain(xp, w, h0, c0)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
@@ -468,7 +468,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
     assert torch.equal(lstm_fused.lstm_layer_fused(xp, w, h0, c0),
                        lstm_fused.lstm_layer_plain(xp, w, h0, c0))
-    assert lstm_fused.launches == before  # CPU tensors launch nothing
+    assert lstm_fused.launch_counts() == before  # CPU tensors launch nothing
 
 
 # --- the probe on the persistent frame ---
@@ -492,7 +492,7 @@ def test_probe_route_follows_the_plan(b, h, sm_count):
 
 def test_probe_entries_are_named_and_counted():
     assert lstm_fused.KERNEL_NAMES["probe_persist"] == "lstm_probe_persist"
-    assert {"probe", "probe_persist"} <= set(lstm_fused.launches)
+    assert {"probe", "probe_persist"} <= set(lstm_fused.launch_counts())
     src = (_build.CSRC / "lstm_persistent.cu").read_text()
     # the probe's cuts are template arguments of the kernels serving runs
     assert "f32h_persist<kFull>(xp, w, h0, c, y, nullptr, bar" in src

@@ -98,9 +98,9 @@ def test_probe_modes_are_what_they_say():
                                atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="probe mode"):
         probe(xp, w, h0, c0, "fast")
-    before = dict(lstm_fused.launches)
+    before = lstm_fused.launch_counts()
     probe(xp, w, mode="full")
-    assert lstm_fused.launches == before  # CPU tensors launch nothing
+    assert lstm_fused.launch_counts() == before  # CPU tensors launch nothing
 
 
 def _noise(shape, seed):

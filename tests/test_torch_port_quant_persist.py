@@ -302,10 +302,10 @@ def test_k_groups_cover_every_k_step_once():
 @pytest.mark.parametrize("state_quant", QUANTS)
 def test_cpu_tensors_take_the_plain_quant_versions(state_quant):
     xp, w, h0, c0 = _inputs(2, 3, 32, seed=3)
-    before = dict(lstm_fused.launches)
+    before = lstm_fused.launch_counts()
     got = lstm_fused.lstm_layer_fused(xp, w, h0, c0, state_quant=state_quant)
     assert torch.equal(got, lstm_fused.lstm_layer_plain(xp, w, h0, c0, state_quant=state_quant))
-    assert lstm_fused.launches == before  # CPU tensors launch nothing
+    assert lstm_fused.launch_counts() == before  # CPU tensors launch nothing
 
 
 # --- the step-split tool (runs on the card; its cuts are checked here) ---

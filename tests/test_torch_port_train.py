@@ -441,10 +441,10 @@ def test_eval_and_predict_steps_match_jax(run, request):
     modality = "av" if run == "av_run" else "audio"
     jm, jsoft = jmake_eval_step(modality)(r["jstate"], r["jbatch"], r["norm_stats"])
     jpred = jmake_predict_step(modality)(r["jstate"], r["jbatch"], r["norm_stats"])
-    before = dict(lstm_fused.launches)
+    before = lstm_fused.launch_counts()
     m, soft = make_eval_step(modality)(r["state"], r["batch"], r["norm_stats"])
     pred = make_predict_step(modality)(r["state"], r["batch"], r["norm_stats"])
-    assert lstm_fused.launches == before  # CPU tensors launch nothing
+    assert lstm_fused.launch_counts() == before  # CPU tensors launch nothing
     assert not r["state"].model.training
     np.testing.assert_allclose(soft.numpy(), np.asarray(jsoft), atol=1e-5)
     np.testing.assert_allclose(pred.numpy(), np.asarray(jpred), atol=1e-5)

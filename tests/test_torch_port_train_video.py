@@ -386,11 +386,11 @@ def test_eval_and_predict_steps_match_jax(run, request):
     r = request.getfixturevalue(run)
     modality = r["modality"]
     jm, jsoft = jmake_eval_step(modality)(r["jstate"], r["jbatch"], r["norm_stats"])
-    before = dict(lstm_fused.launches)
+    before = lstm_fused.launch_counts()
     state = r["ports"][0]["state"]
     m, soft = make_eval_step(modality)(state, r["batch"], r["norm_stats"])
     pred = make_predict_step(modality)(state, r["batch"], r["norm_stats"])
-    assert lstm_fused.launches == before  # CPU tensors launch nothing
+    assert lstm_fused.launch_counts() == before  # CPU tensors launch nothing
     np.testing.assert_allclose(soft.numpy(), np.asarray(jsoft), atol=5e-4)
     np.testing.assert_array_equal(pred.numpy(), soft.numpy())
     for k in jm:

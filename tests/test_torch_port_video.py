@@ -22,8 +22,8 @@ from avvad_tpu.processing.video import upsample_video as jupsample_video
 from avvad_tpu_torch import serve
 from avvad_tpu_torch.convert import from_flax_variables
 from avvad_tpu_torch.models import VideoVAD
-from avvad_tpu_torch.ops import conv_fused, stem_fused
 from avvad_tpu_torch.processing import video as pvideo
+from avvad_tpu_torch.utils import profiling
 
 H = 32
 # probabilities, port against JAX on the same weights and frames: fp32 on
@@ -358,11 +358,10 @@ def test_static_int8_video_streamer_matches_jax(int8_models):
     kw = dict(block_frames=8, video_fps=30.0, video_uint8=True, norm_stats=None)
     videos = [_lip_frames(n, seed=41 + i) for i, n in enumerate((16, 12))]
     want = _play_video(jserve.MultiStreamVideoVAD(jm, variables, 2, **kw), videos, 4, ticks=4)
-    for mod in (conv_fused, stem_fused):
-        mod.reset_launches()
+    profiling.reset()
     got = _play_video(serve.MultiStreamVideoVAD(port, 2, device="cpu", **kw), videos, 4,
                       ticks=4)
-    assert not any(conv_fused.launches.values()) and not any(stem_fused.launches.values())
+    assert not profiling.launches()
     for g, w in zip(got, want):
         assert len(g) == len(w) >= 16
         np.testing.assert_allclose(g, w, atol=INT8_PROB_ATOL)
