@@ -15,6 +15,10 @@ flax's rule (``batch_norm``), with the params frozen or not; a forward that
 (``running_stats_frozen``) leaves them alone, as flax's ``nn.remat`` keeps
 the primal pass's update only. The convs are plain cuDNN
 convolutions: the JAX package leaves them to XLA, outside any Pallas kernel.
+A train-mode BatchNorm with its ReLU and the block's residual add (at the
+stem, the max pool) runs as the port's kernels (``ops/bn_fused.py``) where
+no gradient flows through it, on an fp32 CUDA tensor, outside a
+data-parallel step (``_takes_fused_bn``): the frozen trunk of AV training.
 
 ``quant_int8`` turns on the W8A8 trunk (resnet.py:204-225,364-461): the
 stem conv stays float, its BatchNorm output is quantised with the ``q_stem``
@@ -54,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.sync import all_reduce_sum, data_group
+from ..ops import bn_fused
 from ..ops.conv_fused import conv_exact, fold_block, quant_hwio, trunk_features_int8
 from ..ops.stem_fused import fold_stem, stem_epilogue_pool_quant
 from ..utils.profiling import span
@@ -114,19 +119,14 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     group = data_group()
     if group is not None:
         mean, var = _global_batch_stats(x, axes, shape, fast_variance, group)
+    elif fast_variance:
+        mean, var = bn_fused.moments(x, axes)
     else:
         mean = x.mean(axes)
-        if fast_variance:
-            var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
-        else:
-            var = torch.mean(torch.square(x - mean.view(shape)), axes)
-    if not _stats_frozen:
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-            bn.running_var.copy_((1 - m) * bn.running_var + m * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+        var = torch.mean(torch.square(x - mean.view(shape)), axes)
+    mul = bn_fused.multiplier(mean, var, bn.weight, bn.running_mean, bn.running_var, bn.eps,
+                              bn.momentum, not _stats_frozen)
+    return bn_fused.normalise(x, mean, mul, bn.bias)
 
 
 def _global_batch_stats(x: torch.Tensor, axes: list, shape: list,
@@ -145,10 +145,41 @@ def _global_batch_stats(x: torch.Tensor, axes: list, shape: list,
     return mean, sq / sums[-1]
 
 
-def _trunk_bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """``batch_norm`` in the float trunk, as a ``bn`` span."""
+def _trunk_bn_relu(bn: nn.BatchNorm2d, x: torch.Tensor, shortcut: Optional[torch.Tensor] = None,
+                   shortcut_bn: Optional[nn.BatchNorm2d] = None,
+                   pool: bool = False) -> torch.Tensor:
+    """relu(batch_norm(bn, x) + s) in the float trunk, then the stem's 3x3/2
+    max pool if ``pool``, as one ``bn`` span: s is nothing, ``shortcut`` (the
+    identity), or batch_norm(shortcut_bn, shortcut) (the downsample). Where
+    ``_takes_fused_bn`` holds, the kernels of ``ops/bn_fused.py`` (a
+    statistics pass a BatchNorm, then one pass that normalises, adds, applies
+    the ReLU and pools); else these expressions, under autograd where a
+    gradient flows."""
     with span("bn"):
-        return batch_norm(bn, x)
+        bns = (bn,) if shortcut_bn is None else (bn, shortcut_bn)
+        if _takes_fused_bn(x, shortcut, bns):
+            return bn_fused.bn_relu(bn, x, shortcut, shortcut_bn, update=not _stats_frozen,
+                                    pool=pool)
+        y = batch_norm(bn, x)
+        if shortcut_bn is not None:
+            shortcut = batch_norm(shortcut_bn, shortcut)
+        return bn_fused.epilogue(y, shortcut, True, pool)
+
+
+def _takes_fused_bn(x: torch.Tensor, shortcut: Optional[torch.Tensor], bns: tuple) -> bool:
+    """Whether the trunk's BatchNorms ``bns`` over x (and the shortcut) run as
+    the fused kernels: train mode, an fp32 tensor on a device that has them
+    (the op raises on a shape they do not take), no data group (the
+    statistics of one process's rows), and no gradient through them (the
+    kernels have no backward)."""
+    if not (bns[0].training and x.dtype == torch.float32
+            and x.device.type in bn_fused.KERNEL_DEVICE_TYPES and data_group() is None):
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    tensors = [x, *(() if shortcut is None else (shortcut,)),
+               *(p for bn in bns for p in (bn.weight, bn.bias))]
+    return not any(t.requires_grad for t in tensors)
 
 
 def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -262,13 +293,12 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.relu(_trunk_bn(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt)))
-        y = _trunk_bn(self.bn2, _conv(y, self.conv2.weight, 1, 1, dt))
-        residual = x
+        y = _trunk_bn_relu(self.bn1, _conv(x, self.conv1.weight, self.stride, 1, dt))
+        y = _conv(y, self.conv2.weight, 1, 1, dt)
         if self.has_downsample:
-            residual = _trunk_bn(self.downsample_bn, _conv(
-                x, self.downsample_conv.weight, self.stride, 0, dt))
-        return F.relu(y + residual)
+            return _trunk_bn_relu(self.bn2, y, _conv(x, self.downsample_conv.weight,
+                                                     self.stride, 0, dt), self.downsample_bn)
+        return _trunk_bn_relu(self.bn2, y, x)
 
 
 class _StemGray(nn.Module):
@@ -429,8 +459,7 @@ class ResNet18(nn.Module):
         if not self.quant_int8:
             with span("tower.stem"):
                 x = self.conv1(x)
-            x = F.relu(_trunk_bn(self.bn1, x))
-            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            x = _trunk_bn_relu(self.bn1, x, pool=True)
             for block in self.blocks():
                 x = block(x)
             return _at_least_fp32(x.mean(dim=(2, 3)))

@@ -27,7 +27,7 @@ LIB_PATH = BUILD_DIR / "libavvad_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "lstm_f32h": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -63,6 +63,15 @@ SIGNATURES = {
     # x (channels-last), a, b, out, N, C, channels of a unit, ring slots
     # (the two from stem_fused.nhwc_plan), is_bf16, stream
     "stem_epilogue_pool_nhwc": [_P] * 4 + [_I] * 5 + [_P],
+    # N, C, out: the statistics kernel's CTAs
+    "bn_stats_ctas": [_I, _I, _P],
+    # x, weight, running_mean, running_var, partials, ctas, stats, N, C,
+    # H x W, eps, 1 - momentum, momentum, update, stream
+    "bn_stats": [_P] * 5 + [_I, _P] + [_I] * 3 + [_F] * 3 + [_I, _P],
+    # x, mean, mul, bias, shortcut, its mean, mul, bias (or null), out, N, C,
+    # H, W, shortcut kind (0 none, 1 added, 2 normalised and added), relu,
+    # pool, stream
+    "bn_apply": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lib = None

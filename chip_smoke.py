@@ -28,7 +28,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    parameters, bit for bit at the main path's frame count (64 x 246 =
    15,744) and a ragged one (37); CUDA-event times of kernel (K3's two
    routes in turns) and plain version, bounds, and one line per block with
-   its plan, TOP/s and share of the int8 peak;
+   its plan, TOP/s and share of the int8 peak; then K4, the float trunk's
+   train-mode BatchNorm pair (bn_stats, bn_apply) at the 20 BatchNorms of
+   the AV training step (8,192 frames; the stem's max pool in its pass):
+   launches (20 + 17), each site against its plain version, and CUDA-event
+   times of the kernels, the plain version and F.batch_norm(training=True)
+   (cuDNN; a yardstick, the port never calls it) summed over the step,
+   beside the byte bound;
 5. the full-width AV serving step with the float ResNet-18 tower (MCB 1024,
    2 x LSTM 1024, bf16 model, B=64, T=512, 30 fps unique frames) for each
    LSTM state_quant (2 launches of the persistent K1a, K1c or K1b), with
@@ -76,7 +82,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the bounds;
 8. the full-width AV train step (fp32, frozen ResNet-18 trunk in train
    mode, MCB 1024, 2 x LSTM 1024, Adam 1e-4, B=16, T=512, seeded batch on
-   the card): launch counters, loss and metrics, the step's gradients
+   the card): launch counters (K4's 20 + 17 among them, the K4 row's
+   launches), loss and metrics, the step's gradients
    against the same step with the plain recurrence, ms/step (best of 3
    after a warm-up), x real time, peak memory, stage times by CUDA events
    (inputs, tower, fusion, LSTM forward, head and loss, backward,
@@ -265,7 +272,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     VideoVAD checkpoint written the same way and load_pretrained_trunk
     from it into a frozen-trunk AVVAD, the trunk bit-equal. One
     {"orbax": ...} line each;
-18. one {"kernels": [...]} line (21 rows), then the card's name and power
+18. one {"kernels": [...]} line (22 rows), then the card's name and power
     limit and the ok line with the device.
 Weights are random, from the port's own seeded init (the Orbax fixture's
 were JAX's, written where the fixture was made); nothing of JAX runs.
@@ -737,6 +744,106 @@ def int8_kernel_phase(n_frames: int) -> dict:
                   "bound_ms": tot["bound_ms"], "bound_by": bound_by,
                   "library_ms": None}
     return rows
+
+
+# the float trunk's BatchNorm sites at the AV training step, in order: (stage,
+# C, side of H x W, forms); a form is a bn_relu call: "pool" one BatchNorm and
+# the stem's 3x3/2 max pool, "relu" one BatchNorm, "identity" one plus the
+# block's input, "downsample" two (bn2 and the shortcut's) and their sum
+BN_SITES = (("stem", 64, 34, ("pool",)),
+            ("layer1", 64, 17, ("relu", "identity") * 2),
+            *((f"layer{i}", c, h, ("relu", "downsample", "relu", "identity"))
+              for i, c, h in ((2, 128, 9), (3, 256, 5), (4, 512, 3))))
+
+
+def bn_kernel_phase(n_frames: int = TRAIN_B * T) -> dict:
+    """K4 (``bn_stats`` + ``bn_apply``) at the AV training step's 20
+    train-mode BatchNorms: launches, each site against the plain version
+    (``batch_norm`` with its ReLU and add, at the stem its max pool),
+    CUDA-event times of the kernels, the plain version and
+    ``F.batch_norm(training=True)`` (cuDNN, a yardstick only; the same ReLU,
+    add and pool) summed over the step, and the byte bound -> kernel row."""
+    import torch.nn.functional as F
+
+    from avvad_tpu_torch.models.resnet import batch_norm
+    from avvad_tpu_torch.ops import bn_fused
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def new_bn(c):
+        bn = torch.nn.BatchNorm2d(c).cuda().train().requires_grad_(False)
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(generator=g)
+        return bn
+
+    def run(kind, form, bn, sc_bn, x, s):
+        sc = s if form in ("identity", "downsample") else None
+        ds = sc_bn if form == "downsample" else None
+        if kind == "kernel":
+            return bn_fused.bn_relu(bn, x, sc, ds, pool=form == "pool")
+        if kind == "plain":
+            norm = batch_norm
+        else:
+            norm = lambda m, t: F.batch_norm(t, m.running_mean, m.running_var,  # noqa: E731
+                                             m.weight, m.bias, True, m.momentum, m.eps)
+        y = norm(bn, x)
+        if sc is not None:
+            y = y + (sc if ds is None else norm(ds, sc))
+        y = F.relu(y)
+        return F.max_pool2d(y, 3, stride=2, padding=1) if form == "pool" else y
+
+    tot = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    nbytes, worst, launches = 0, 0.0, {}
+    for stage, c, h, forms in BN_SITES:
+        x = torch.randn(n_frames, c, h, h, generator=g, device="cuda") * 2 + 0.5
+        s = torch.randn(n_frames, c, h, h, generator=g, device="cuda")
+        bn, sc_bn = new_bn(c), new_bn(c)
+        for form in set(forms):
+            y = run("kernel", form, bn, sc_bn, x, s)
+            ref = run("plain", form, copy.deepcopy(bn), copy.deepcopy(sc_bn), x, s)
+            err = ((y - ref).abs().max() / ref.abs().max()).item()
+            worst = max(worst, err)
+            if not err < 1e-5:  # the statistics in another summation order
+                raise RuntimeError(f"K4 {stage} {form}: {err:.2e} off plain")
+            del y, ref
+        step = {kind: (lambda kind=kind: [run(kind, f, bn, sc_bn, x, s) for f in forms])
+                for kind in tot}
+        reset_counts()
+        step["kernel"]()
+        torch.cuda.synchronize()
+        for k, v in profiling.launches().items():
+            launches[k] = launches.get(k, 0) + v
+        # kernel, plain, library, kernel: in turns on one card
+        ms = {"kernel": [cuda_ms(step["kernel"], 5)], "plain": [cuda_ms(step["plain"], 2)],
+              "library": [cuda_ms(step["library"], 5)]}
+        ms["kernel"].append(cuda_ms(step["kernel"], 5))
+        # stats read x (and the shortcut's input), apply reads x and the
+        # shortcut and writes the output (pooled: a quarter), each once
+        site_bytes = sum({"pool": 2.25, "relu": 3, "identity": 4, "downsample": 5}[f]
+                         for f in forms)
+        nbytes += int(site_bytes * x.numel() * 4)
+        print(f"bn_stats + bn_apply {stage} ({n_frames}, {c}, {h}, {h}) x {len(forms)} sites: "
+              f"kernel {min(ms['kernel']):.3f} ms (reps {[round(t, 3) for t in ms['kernel']]}), "
+              f"plain {ms['plain'][0]:.3f}, F.batch_norm {ms['library'][0]:.3f}, bound "
+              f"{1e3 * site_bytes * x.numel() * 4 / MEM_BW:.4f} ms")
+        for kind in tot:
+            tot[kind] += min(ms[kind])
+        del x, s, step
+        torch.cuda.empty_cache()
+    if launches != {bn_fused.STATS_KERNEL: 20, bn_fused.APPLY_KERNEL: 17}:
+        raise RuntimeError(f"K4: launches a step {launches}")
+    bound_ms = 1e3 * nbytes / MEM_BW
+    print(f"K4 bn_stats + bn_apply, 20 BatchNorms at N={n_frames}: kernel {tot['kernel']:.3f} "
+          f"ms ({bound_ms / tot['kernel']:.3f} of the bound), plain {tot['plain']:.3f}, "
+          f"F.batch_norm {tot['library']:.3f}, bound {bound_ms:.4f} ms (bytes; "
+          f"{nbytes / 1e9:.3f} GB at {MEM_BW_NAME}); launches {launches}; worst "
+          f"{worst:.2e} of the output's max off plain")
+    return {"k4": {"name": "bn_stats + bn_apply", "route": "cuda",
+                   "source": "avvad_tpu_torch/csrc/batch_norm.cu",
+                   "replaces": "none (XLA fuses BatchNorm)", "launches": 0,
+                   "max_abs_err": worst, "ms": tot["kernel"], "plain_ms": tot["plain"],
+                   "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": tot["library"]}}
 
 
 def _mark(marks: list, name: str = "") -> None:
@@ -1283,12 +1390,22 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 def launch_counts() -> dict:
     """{LSTM variant or kernel name: launches} since ``reset_counts``, from
     the program's counters."""
-    from avvad_tpu_torch.ops import conv_fused, lstm_fused, stem_fused
+    from avvad_tpu_torch.ops import bn_fused, conv_fused, lstm_fused, stem_fused
 
     done = profiling.launches()
     return {**lstm_fused.launch_counts(),
             **{k: done.get(k, 0) for k in (conv_fused.KERNEL_NAME, stem_fused.KERNEL_NAME,
-                                            stem_fused.NHWC_KERNEL_NAME)}}
+                                            stem_fused.NHWC_KERNEL_NAME,
+                                            bn_fused.STATS_KERNEL, bn_fused.APPLY_KERNEL)}}
+
+
+def k4_launches(steps: int = 1) -> dict:
+    """K4's launches in ``steps`` AV train steps on the frozen fp32 trunk
+    outside a data group: 20 statistics (one a BatchNorm) and 17 apply (one
+    a normalisation site) a step."""
+    from avvad_tpu_torch.ops import bn_fused
+
+    return {bn_fused.STATS_KERNEL: 20 * steps, bn_fused.APPLY_KERNEL: 17 * steps}
 
 
 def reset_counts() -> None:
@@ -1540,11 +1657,15 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     counts = launch_counts()
     expect = {k: 0 for k in counts}
     expect.update({fwd: 2, bwd: 2} if persist else {fwd: 2 * t, bwd: 2 * (t + 1)})
+    if freeze:  # the frozen trunk's BatchNorms on K4; a trained one on autograd
+        expect.update(k4_launches())
     if counts != expect:
         raise RuntimeError(f"train {label}: launch counts {counts}, expected {expect}")
     if av or not persist:
         rows[fwd]["launches"] = counts[fwd]
         rows[bwd]["launches"] = counts[bwd]
+    if freeze:
+        rows["k4"]["launches"] = sum(counts[k] for k in k4_launches())
     m = {k: v.item() for k, v in metrics.items()}
     if not (np.isfinite(m["loss"]) and all(0 <= m[k] <= 1 for k in m if k != "loss")):
         raise RuntimeError(f"train {label}: bad metrics {m}")
@@ -1567,7 +1688,8 @@ def train_path(rows: dict, modality: str, h: int = H, b: int = TRAIN_B, t: int =
     torch.cuda.empty_cache()
     print(f"train {label}: launches {counts[fwd]} K1d ({lstm_fused.KERNEL_NAMES[fwd]}), "
           f"{counts[bwd]} K1e ({lstm_fused.KERNEL_NAMES[bwd]}), "
-          f"{counts['none'] + counts['none_persist']} K1a; "
+          f"{counts['none'] + counts['none_persist']} K1a, "
+          f"{' + '.join(str(counts[k]) for k in k4_launches())} K4; "
           f"metrics {json.dumps({k: round(v, 6) for k, v in m.items()})}; "
           f"against the plain recurrence: grads rel {grad_err:.3e} (tol "
           f"{STEP_GRAD_REL_TOL:g}) over {len(grads)} tensors ({n_trunk} of the trunk), "
@@ -2988,15 +3110,17 @@ def nonzero_counts() -> dict:
     return {k: v for k, v in launch_counts().items() if v}
 
 
-def train_launches(b: int) -> tuple[dict, str]:
+def train_launches(b: int, k4: bool) -> tuple[dict, str]:
     """The K1d / K1e launches of one AV train step at B=b, T=T, H=H, by the
-    route ``persistent_plan`` picks -> (expected counts, route)."""
+    route ``persistent_plan`` picks, and K4's where ``k4`` (the trunk frozen,
+    no data group) -> (expected counts, route)."""
     from avvad_tpu_torch.ops import lstm_fused
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bn = k4_launches() if k4 else {}
     if lstm_fused.persistent_plan(b, H, sms) is not None:
-        return {"fwd_train_persist": 2, "bwd_persist": 2}, "persistent"
-    return {"fwd_train": 2 * T, "bwd": 2 * (T + 1)}, "per-step"
+        return {"fwd_train_persist": 2, "bwd_persist": 2, **bn}, "persistent"
+    return {"fwd_train": 2 * T, "bwd": 2 * (T + 1), **bn}, "per-step"
 
 
 def mesh_nccl_phase() -> None:
@@ -3026,7 +3150,7 @@ def mesh_nccl_phase() -> None:
         trainer.train_epoch([batch], epoch=1)
         torch.cuda.synchronize()
         counts = nonzero_counts()
-        expect, route = train_launches(TRAIN_B)
+        expect, route = train_launches(TRAIN_B, k4=True)  # world 1: no data group
         got, want = state.model.state_dict(), ref.model.state_dict()
         unequal = [k for k in want if not torch.equal(got[k], want[k])]
         del ref
@@ -3148,7 +3272,8 @@ def mesh_rank(out_dir: str) -> dict:
         shard_opt_state(mesh, state.optimizer)
         step = make_train_step("av", dropout=rate > 0, dropout_seed=11, mesh=mesh)
         local = shard_batch(mesh, batch)
-        expect, route = train_launches(local.audio.shape[0])
+        # a data axis of 2 takes the global batch's statistics on autograd
+        expect, route = train_launches(local.audio.shape[0], k4=n_data == 1)
         torch.cuda.reset_peak_memory_stats()
         dist.barrier()
         reset_counts()
@@ -3417,7 +3542,7 @@ TIMER_ITERS, TIMER_REPS, TIMER_TICKS, TIMER_TRIPWIRE_N = 2, 2, 8, 512
 TIMER_PROB_TOL = 1e-4
 # launch counters -> rows of the kernels line
 ROW_OF = {"int8_basic_block": "k2", "stem_epilogue_pool_nhwc": "k3_nhwc",
-          "stem_epilogue_pool": "k3"}
+          "stem_epilogue_pool": "k3", "bn_stats": "k4", "bn_apply": "k4"}
 
 
 @contextlib.contextmanager
@@ -3550,12 +3675,14 @@ def timers_phase(rows: dict) -> None:
     check_records(rec, "bench")
     torch.cuda.empty_cache()
 
-    # (2) the train matrix: 1 + REPS x ITERS steps a config, K1d / K1e 2 + 2 each
+    # (2) the train matrix: 1 + REPS x ITERS steps a config, K1d / K1e 2 + 2
+    # each, K4's 20 + 17 in each of the frozen AV config's
     steps = 4 * (1 + TIMER_REPS * TIMER_ITERS)
     with bench_env(**loops):
         rec = timer_run(rows, "bench --train-matrix",
                         lambda _c: bench.main(["--train-matrix"]),
-                        {"fwd_train_persist": 2 * steps, "bwd_persist": 2 * steps})
+                        {"fwd_train_persist": 2 * steps, "bwd_persist": 2 * steps,
+                         **k4_launches(steps // 4)})
     check_records(rec[0]["configs"], "train matrix")
     torch.cuda.empty_cache()
 
@@ -4485,6 +4612,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(lstm_fused)
     rows.update(int8_kernel_phase(B * unique_frame_schedule(T)[0]))
+    rows.update(bn_kernel_phase())
+    torch.cuda.empty_cache()
     float_model = main_path(lstm_fused, rows)
     torch.cuda.empty_cache()
     int8_model = int8_path(rows)
@@ -4538,7 +4667,7 @@ def main() -> None:
     orbax_phase(rows)
     print(json.dumps({"kernels": [rows[k] for k in (
         *(v for sq in lstm_fused.STATE_QUANTS for v in (sq + "_persist", sq)),
-        *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc",
+        *lstm_fused.TRAIN_KERNELS, "k2", "k3", "k3_nhwc", "k4",
         *(f"{r}/{m}" for r in ("probe", "probe_persist") for m in lstm_fused.PROBE_MODES))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -150,11 +150,19 @@ def test_inference_plan_for_the_serving_shape_on_an_h100():
 
 
 def _c_entries():
-    """{name: [is_pointer per parameter]} of every extern "C" function."""
+    """{name: [ctypes type per parameter]} of every extern "C" function:
+    a pointer, a float or an int."""
+    import ctypes
+
+    def ctype(param: str):
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_float if param.split()[0] == "float" else ctypes.c_int
+
     entries = {}
     for path in sorted(_build.CSRC.glob("*.cu")):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
-            entries[name] = ["*" in p for p in params.split(",")]
+            entries[name] = [ctype(p) for p in params.split(",")]
     return entries
 
 
@@ -167,10 +175,7 @@ def test_signatures_name_every_c_entry():
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_signature_matches_the_c_declaration(name):
-    import ctypes
-
-    want = [ctypes.c_void_p if ptr else ctypes.c_int for ptr in _c_entries()[name]]
-    assert _build.SIGNATURES[name] == want
+    assert _build.SIGNATURES[name] == _c_entries()[name]
 
 
 def test_kernel_names_are_bound_entries():

@@ -213,7 +213,9 @@ def test_serving_step_span_tree(recorder, int8):
         want.add(("bn", "tower"))
     assert _tree(recs) == want
     assert len({r["step"] for r in recs}) == 1
-    assert sum(r["name"] == "bn" for r in recs) == (0 if int8 else 20)
+    # one span a normalisation: the stem and each block's two halves (the
+    # downsample's BatchNorm, the residual add and the ReLU inside the second)
+    assert sum(r["name"] == "bn" for r in recs) == (0 if int8 else 17)
     setup = profiling.snapshot()["setup"]
     assert setup["setup.serving_fn"]["calls"] >= 1
     if int8:
@@ -240,7 +242,7 @@ def test_train_step_span_tree(recorder):
         ("train.metrics", "train.step"), ("tower", "train.forward"),
         ("tower.stem", "tower"), ("bn", "tower"), ("fusion", "train.forward"),
         ("lstm", "train.forward"), ("head", "train.forward")}
-    assert sum(r["name"] == "bn" for r in recs) == 20
+    assert sum(r["name"] == "bn" for r in recs) == 17
     assert len({r["step"] for r in recs}) == 1
     assert profiling.snapshot()["setup"]["setup.train_state"]["calls"] >= 1
 
