@@ -211,14 +211,18 @@ class RawAudioVAD(nn.Module):
     branch. The encoder's adaptive pool re-times the waveform to
     ``out_frames`` label frames, set once at construction as in JAX.
 
-    The LSTM runs its plain loop (``use_kernel=False``): the JAX module
-    keeps ``LSTMStack``'s default ``use_pallas=False``, a ``lax.scan`` over
-    W_hh in the model dtype, where the kernels read a bf16-rounded W_hh."""
+    By default the LSTM runs its plain loop: the JAX module keeps
+    ``LSTMStack``'s default ``use_pallas=False``, a ``lax.scan`` over W_hh in
+    the model dtype. ``use_kernel_lstm`` puts the recurrence on the
+    hand-written kernels (K1a for ``lstm_state_quant="none"``: fp32 h and c
+    against a bf16-rounded W_hh), as on the other models."""
 
     def __init__(self, y_dim: int = 1, lstm_hidden_size: int = 1024,
                  lstm_layers: int = 2, out_frames: int = 128,
                  wavenet_kwargs: Optional[dict] = None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
+                 dtype: torch.dtype = torch.float32,
+                 use_kernel_lstm: bool = False, lstm_state_quant: str = "none",
+                 seed: int = 0):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.lstm_hidden_size, self.lstm_layers = lstm_hidden_size, lstm_layers
@@ -230,8 +234,9 @@ class RawAudioVAD(nn.Module):
         self.wavenet_en = WaveNetEncoder(pool_kernel_size=out_frames, dtype=dtype,
                                          generator=g, **kw)
         self.lstm_audio = LSTMStack(kw["bottleneck_width"], lstm_hidden_size,
-                                    lstm_layers, dtype=dtype, use_kernel=False,
-                                    generator=g)
+                                    lstm_layers, dtype=dtype,
+                                    use_kernel=use_kernel_lstm,
+                                    state_quant=lstm_state_quant, generator=g)
         self.vad_audio = _head(lstm_hidden_size, y_dim, g)
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .resnet import lecun_normal_
 
 
@@ -76,11 +77,15 @@ class WaveNetEncoder(nn.Module):
         return F.conv1d(x, c.weight.to(dt), bias, dilation=c.dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Each dilated residual block is an ``encoder.block`` span, the
+        bottleneck with its ReLU and the pool the ``encoder.pool`` span."""
         x = self._conv("causal_entry", x.to(self.dtype).transpose(1, 2))  # NCW
         for i in range(len(self.dilations)):
-            y = self._conv(f"dilated_{i}", torch.relu(x))
-            y = self._conv(f"dense_{i}", torch.relu(y))
-            # align the residual to the (shorter) conv output: keep the tail
-            x = y + x[..., x.shape[-1] - y.shape[-1]:]
-        x = torch.relu(self._conv("bottleneck", x))
-        return adaptive_avg_pool1d(x.transpose(1, 2), self.pool_kernel_size)
+            with span("encoder.block"):
+                y = self._conv(f"dilated_{i}", torch.relu(x))
+                y = self._conv(f"dense_{i}", torch.relu(y))
+                # align the residual to the (shorter) conv output: keep the tail
+                x = y + x[..., x.shape[-1] - y.shape[-1]:]
+        with span("encoder.pool"):
+            x = torch.relu(self._conv("bottleneck", x))
+            return adaptive_avg_pool1d(x.transpose(1, 2), self.pool_kernel_size)

@@ -35,10 +35,9 @@ def build_model(modality: str, y_dim: int = 1, lstm_hidden: int = 1024,
     from ..models import AVVAD, AudioVAD, RawAudioVAD, VideoVAD
 
     kw = dict(y_dim=y_dim, lstm_hidden_size=lstm_hidden, lstm_layers=lstm_layers,
-              dtype=DTYPES[dtype])
+              dtype=DTYPES[dtype], use_kernel_lstm=True)
     if modality == "raw-audio":
         return RawAudioVAD(**kw, **options)
-    kw["use_kernel_lstm"] = True
     if modality == "audio":
         return AudioVAD(**kw, **options)
     if modality == "video":

@@ -10,10 +10,11 @@ reports, the JAX package's format.
 The recorder. ``span(name)`` marks a layer boundary where the work
 happens: ``serve.step`` (``ServingStep``), ``serve.frontend``, ``tower``,
 ``tower.stem``, ``bn`` (each BatchNorm of the float ResNet trunk),
-``fusion``, ``lstm``, ``head``, ``encoder`` (RawAudioVAD's WaveNet), and
-the train step's ``train.step``, ``train.forward``, ``train.loss``,
-``train.backward`` (``zero_grad`` and ``loss.backward``),
-``train.optimizer`` and ``train.metrics``.
+``fusion``, ``lstm``, ``head``, ``encoder`` (RawAudioVAD's WaveNet), inside
+it ``encoder.block`` (each dilated residual block) and ``encoder.pool`` (the
+bottleneck and the pool), and the train step's ``train.step``,
+``train.forward``, ``train.loss``, ``train.backward`` (``zero_grad`` and
+``loss.backward``), ``train.optimizer`` and ``train.metrics``.
 
 - Off (the default): a span is two flag reads and one shared null
   context: no allocation, no CUDA call.
